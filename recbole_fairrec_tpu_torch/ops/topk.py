@@ -1,0 +1,51 @@
+"""Streaming full-catalog top-k (plain PyTorch).
+
+Counterpart of ``recbole_fairrec_tpu/ops/topk.py::streaming_topk_scores``:
+item tiles are scored one at a time and merged into a running ``[B, k]``
+top-k, so peak memory is O(B·(tile + k)) instead of O(B·|I|).
+
+Ordering: (score descending, item index ascending). ``lax.top_k`` breaks ties
+toward the lowest index and ``torch.topk`` promises no order, so the merge
+is a stable descending sort of [running ⧺ tile] — the running entries carry
+lower indices than the tile's and come first, hence ties keep index order.
+
+``approx_topk_scores`` and ``certified_topk_scores`` (TPU PartialReduce) are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False):
+    """Top-k of ``user_emb @ item_table.T`` without materializing all scores.
+
+    Args:
+        user_emb: [B, d] float32.
+        item_table: [I, d] float32.
+        top_k: k.
+        tile: item-tile width.
+        mask_pad: exclude the [PAD] item (row 0).
+
+    Returns:
+        (topk_scores [B, k] float32, topk_idx [B, k] int32). Slots beyond the
+        number of selectable items hold (−inf, 0).
+    """
+    B = user_emb.shape[0]
+    I = item_table.shape[0]
+    device = user_emb.device
+    best_s = torch.full((B, top_k), float("-inf"), dtype=torch.float32, device=device)
+    best_i = torch.zeros((B, top_k), dtype=torch.int64, device=device)
+    for col0 in range(0, I, tile):
+        block = item_table[col0 : col0 + tile]
+        scores = (user_emb.float() @ block.float().T).to(torch.float32)
+        idx = torch.arange(col0, col0 + block.shape[0], device=device)
+        if mask_pad and col0 == 0:
+            scores[:, 0] = float("-inf")
+        cat_s = torch.cat([best_s, scores], dim=1)
+        cat_i = torch.cat([best_i, idx.expand(B, -1)], dim=1)
+        order = torch.sort(cat_s, dim=1, descending=True, stable=True).indices[:, :top_k]
+        best_s = torch.gather(cat_s, 1, order)
+        best_i = torch.gather(cat_i, 1, order)
+    return best_s, best_i.to(torch.int32)

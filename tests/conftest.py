@@ -30,6 +30,12 @@ import pytest
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself where none is present"
+    )
+
+
 @pytest.fixture(scope="session")
 def ref_recbole(request):
     """The torch reference imported for differential tests, with global-state
