@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Time the port's fused score + top-k' kernel across k' and batch size.
 
-    python3 kernel_sweep.py [--out PATH]
+    python3 kernel_sweep.py [--out PATH] [--profile]
 
 Needs one CUDA card. Gaussian inputs from a seeded generator at d = 64
-against the ml-1M-scale catalogue (3,630 rows with PAD); for each (B, k')
-prints one JSON line with the kernel's median time, the plain version's and
-``torch.topk(U @ T.T)``'s, beside the card's name and power limit. How the
+against the ml-1M-scale catalogue (3,630 rows with PAD; 16,384 rows for
+k' 4096, the largest the kernel takes); for each (B, k')
+prints one JSON line with the kernel's median time of one call (``ms``) and
+of a call among 10 back to back (``ms_back_to_back``), the wrapper's host
+time per call (``host_us``), the plain version's and ``torch.topk(U @
+T.T)``'s times of one call, beside the card's name and power limit. How the
 kernel's time grows with k' separates the selection's cost from the
-products' (k' = 1 is almost only products).
+products' (k' = 1 is almost only products). ``--profile`` adds the device
+time of each CUDA kernel of one call (``torch.profiler``, mean over 10
+calls), which splits the score + select kernel from the merge.
 """
 
 from __future__ import annotations
@@ -16,33 +21,55 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
-def _median_ms(fn, reps=20):
+def _host_us(fn, calls=20):
+    """Host time of one call while the card is busy with the calls before
+    it (none of them waits for the card): the wrapper's own cost."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _kernel_times_us(fn, calls=10):
+    """Mean device time per call of each CUDA kernel that ``fn`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        for name in ("score_select_kernel", "merge_kernel"):
+            if dev_us and name in ev.key:
+                out[name] = out.get(name, 0.0) + dev_us / calls
+    return out
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also append the JSON lines to this file")
+    parser.add_argument("--profile", action="store_true",
+                        help="also report the device time of each CUDA kernel per call")
     args = parser.parse_args()
 
     import torch
@@ -50,6 +77,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs a CUDA card")
     sys.path.insert(0, REPO)
+    from chip_smoke import _median_ms
     from recbole_fairrec_tpu_torch.ops import fused_topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,26 +87,36 @@ def main():
     ).stdout.strip().splitlines()[0]
     fused_topk.build()
     gen = torch.Generator().manual_seed(0)
-    I, d = 3630, 64
-    T = torch.randn((I, d), generator=gen).cuda()
+    d = 64
+    tables = {I: torch.randn((I, d), generator=gen).cuda() for I in (3630, 16384)}
+    users = {B: torch.randn((B, d), generator=gen).cuda() for B in (1024, 6144)}
+    cases = [(B, 3630, k) for B in (1024, 6144) for k in (1, 8, 32, 173, 512, 1024, 2048)]
+    cases.append((6144, 16384, 4096))  # the largest k' the kernel takes
     lines = []
-    for B in (1024, 6144):
-        U = torch.randn((B, d), generator=gen).cuda()
-        for k in (1, 8, 32, 173, 512, 1024):
-            def library():
-                s = U @ T.T
-                s[:, 0] = float("-inf")
-                return torch.topk(s, k, dim=1)
+    for B, I, k in cases:
+        U, T = users[B], tables[I]
 
-            row = {
-                "B": B, "I": I, "d": d, "k": k,
-                "ms": _median_ms(lambda: fused_topk.fused_topk_scores(U, T, k)),
-                "plain_ms": _median_ms(lambda: fused_topk.fused_topk_scores_reference(U, T, k), 5),
-                "library_ms": _median_ms(library),
-                "card": card,
-            }
-            lines.append(json.dumps(row))
-            print(lines[-1], flush=True)
+        def library():
+            s = U @ T.T
+            s[:, 0] = float("-inf")
+            return torch.topk(s, k, dim=1)
+
+        def kernel():
+            return fused_topk.fused_topk_scores(U, T, k)
+
+        row = {
+            "B": B, "I": I, "d": d, "k": k,
+            "ms": _median_ms(kernel),
+            "ms_back_to_back": _median_ms(kernel, calls=10),
+            "host_us": _host_us(kernel),
+            "plain_ms": _median_ms(lambda: fused_topk.fused_topk_scores_reference(U, T, k), 5),
+            "library_ms": _median_ms(library),
+            "card": card,
+        }
+        if args.profile:
+            row["kernels_us"] = _kernel_times_us(kernel)
+        lines.append(json.dumps(row))
+        print(lines[-1], flush=True)
     if args.out:
         with open(args.out, "a", encoding="utf-8") as f:
             f.write("\n".join(lines) + "\n")

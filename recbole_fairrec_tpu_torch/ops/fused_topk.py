@@ -11,8 +11,10 @@ a slot without an item holding (−inf, 0).
 A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes to
 the plain version, ``fused_topk_scores_reference``. There is no fallback
 between the two. The kernel is compiled with ``nvcc`` for ``sm_90a`` into
-``_build/`` at first use and loaded with ctypes; ``launches`` counts the
-kernel launches.
+``_build/`` at first use and loaded with ctypes. One call on the card makes
+two CUDA launches (score + per-chunk select, then the per-user merge) over
+a scratch tensor of per-chunk lists that the wrapper allocates;
+``launches`` counts the calls that took the kernel path.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -32,11 +35,20 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_topk.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 MAX_K = 4096
-_TILE = 64  # kTile in the CUDA source: items per tile
-_CAND_MIN = 256  # kCandMin in the CUDA source: candidate list entries per user, at least
+# The CUDA source's constants: users per score block, items and depth per T
+# tile, T tiles in flight, padding of a key row, threads per merge block.
+BM, BN, BK, STAGES, KEY_PAD, MERGE_THREADS = 64, 256, 16, 3, 8, 256
+MAX_CHUNK = 512  # kMaxChunk: a chunk's keys fit 16 registers per lane
+SLACK = 32  # kSlack: keys a chunk's list may hold beyond k' (for k' > 1)
+MIN_BLOCKS_PER_SM = 2
+MERGE_WARP_MAX_K = 512  # the merge sorts up to this many winners with one warp
+# kMergeStaticSmem: the merge kernel's static shared memory, at most; CUDA
+# counts it against the opt-in limit beside the dynamic bytes
+MERGE_STATIC_SMEM = 256
 
 launches = 0
 _LIB = None
+_LAUNCH_ARGS = {}
 
 
 def _nvcc():
@@ -81,37 +93,104 @@ def _lib():
         lib.fused_topk_max_smem.argtypes = []
         lib.fused_topk_launch.restype = ctypes.c_int
         lib.fused_topk_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
+
+
+class Plan(NamedTuple):
+    """Grid of the score + select kernel: ``bm`` users per block, the item
+    axis cut into ``splits`` chunks of ``chunk`` items, ``smem`` bytes of
+    dynamic shared memory per block."""
+
+    bm: int
+    chunk: int
+    splits: int
+    smem: int
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
 
 
 def _pow2_at_least(n):
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def smem_bytes(d, K, upb, vec):
-    """Dynamic shared memory of one block (layout in the CUDA source)."""
-    tstride = d + 4 if vec else d + 1
-    cand = max(_CAND_MIN, K)
-    return 4 * (2 * _TILE * tstride + upb * d + 2 * upb * K + 2 * upb * cand)
+def smem_bytes(d, chunk):
+    """Dynamic shared memory of one score + select block (layout in the CUDA
+    source): U rows, the T ring, the [BM, chunk] key block."""
+    dpad = _ceil_div(d, BK) * BK
+    return 4 * (BM * (dpad + 4) + STAGES * BN * (BK + 4) + BM * (chunk + KEY_PAD))
 
 
-def launch_plan(d, top_k, smem_limit, vec):
-    """(K, users per block, shared bytes): K is k' rounded up to a power of
-    two; the block holds as many users (8, 4, 2, 1) as fit ``smem_limit``."""
-    K = _pow2_at_least(top_k)
-    for upb in (8, 4, 2, 1):
-        need = smem_bytes(d, K, upb, vec)
-        if need <= smem_limit:
-            return K, upb, need
-    raise ValueError(
-        f"fused_topk: k'={top_k}, d={d} needs {smem_bytes(d, K, 1, vec)} bytes of shared "
-        f"memory per block, more than the card's {smem_limit}"
-    )
+class MergePlan(NamedTuple):
+    """The merge kernel: ``n`` list entries per user, the winners sorted in
+    ``kp`` slots (min(k', I) rounded up to a power of two, at least one per
+    thread of the team), ``team`` threads per user (a warp, or the whole
+    block where that power of two is above MERGE_WARP_MAX_K), the lists'
+    keys copied into shared memory when ``keys_in_smem``, ``smem`` bytes."""
+
+    n: int
+    kp: int
+    team: int
+    keys_in_smem: bool
+    smem: int
+
+
+def list_len(top_k, chunk):
+    """Entries of one chunk's list (``list_len`` in the CUDA source)."""
+    return min(top_k + SLACK if top_k > 1 else top_k, chunk)
+
+
+def merge_plan(n_items, top_k, plan, smem_limit):
+    """The merge's dynamic bytes stay within ``smem_limit`` less its static
+    bytes; the lists' keys go to shared memory only where they fit too."""
+    dynamic_limit = smem_limit - MERGE_STATIC_SMEM
+    lmax = list_len(top_k, plan.chunk)
+    last = n_items - (plan.splits - 1) * plan.chunk
+    n = (plan.splits - 1) * lmax + min(lmax, last)
+    kp = _pow2_at_least(min(top_k, n_items))
+    team = 32 if kp <= MERGE_WARP_MAX_K else MERGE_THREADS
+    kp = max(kp, team)
+    words = 8 * (kp + kp // 16)  # padded: word i at i + i // 16
+    teams = MERGE_THREADS // team
+    with_keys = teams * (words + 4 * _ceil_div(n, 2) * 2)
+    if with_keys <= dynamic_limit:
+        return MergePlan(n, kp, team, True, with_keys)
+    smem = teams * words
+    if smem > dynamic_limit:
+        raise ValueError(f"fused_topk: k'={top_k} needs {smem} bytes of shared memory per "
+                         f"merge block, more than the card's {smem_limit} less "
+                         f"{MERGE_STATIC_SMEM} static")
+    return MergePlan(n, kp, team, False, smem)
+
+
+def scratch_entries(n_users, top_k, plan):
+    """Entries of the per-chunk lists (8 bytes each: the item and its key)."""
+    return n_users * plan.splits * list_len(top_k, plan.chunk)
+
+
+def launch_plan(n_users, n_items, d, smem_limit, n_sm):
+    """The chunk is as large as ``smem_limit`` allows (a multiple of BN), cut
+    further until the grid holds MIN_BLOCKS_PER_SM blocks per SM."""
+    chunk_max = min(MAX_CHUNK, (smem_limit - smem_bytes(d, 0)) // (4 * BM) // BN * BN)
+    if chunk_max < BN:
+        raise ValueError(
+            f"fused_topk: d={d} needs {smem_bytes(d, BN)} bytes of shared memory per "
+            f"block, more than the card's {smem_limit}"
+        )
+    user_blocks = _ceil_div(n_users, BM)
+    target = MIN_BLOCKS_PER_SM * n_sm
+    splits = max(_ceil_div(n_items, chunk_max), _ceil_div(target, user_blocks))
+    chunk = min(chunk_max, _ceil_div(_ceil_div(n_items, splits), BN) * BN)
+    while user_blocks * _ceil_div(n_items, chunk) < target and chunk > BN:
+        chunk -= BN
+    return Plan(BM, chunk, _ceil_div(n_items, chunk), smem_bytes(d, chunk))
 
 
 def fused_topk_scores_reference(user_emb, item_table, top_k):
@@ -120,6 +199,38 @@ def fused_topk_scores_reference(user_emb, item_table, top_k):
     scores, idx = streaming_topk_scores(user_emb, item_table, top_k, mask_pad=True)
     idx = torch.where(torch.isneginf(scores), torch.zeros_like(idx), idx)
     return scores, idx
+
+
+def _launch_args(device, B, I, d, top_k):
+    """For these shapes on this device, made once: the scratch's 8-byte
+    words, the launch's shape arguments before ``vec`` and its two shared
+    memory sizes after it (the wrapper's host time is part of every call)."""
+    key = (device.index, B, I, d, top_k)
+    args = _LAUNCH_ARGS.get(key)
+    if args is None:
+        smem_limit = _lib().fused_topk_max_smem()
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = launch_plan(B, I, d, smem_limit, n_sm)
+        merge = merge_plan(I, top_k, plan, smem_limit)
+        # the lists, then one 4-byte lower bound per (user, chunk)
+        words = scratch_entries(B, top_k, plan) + _ceil_div(B * plan.splits, 2)
+        shape = (B, I, d, top_k, plan.chunk, plan.splits, merge.n, merge.kp, merge.team,
+                 int(merge.keys_in_smem))
+        args = _LAUNCH_ARGS[key] = (words, shape, (plan.smem, merge.smem))
+    return args
+
+
+def _launch(user_emb, item_table, out_s, out_i, top_k):
+    (B, d), device = user_emb.shape, user_emb.device
+    words, shape, smem = _launch_args(device, B, item_table.shape[0], d, top_k)
+    scratch = torch.empty(words, dtype=torch.int64, device=device)
+    u, t = user_emb.data_ptr(), item_table.data_ptr()
+    vec = int(d % 4 == 0 and u % 16 == 0 and t % 16 == 0)
+    # the raw handle of the current stream, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    return _lib().fused_topk_launch(
+        u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem, stream
+    )
 
 
 def fused_topk_scores(user_emb, item_table, top_k):
@@ -132,11 +243,12 @@ def fused_topk_scores(user_emb, item_table, top_k):
         )
     if not 1 <= top_k <= MAX_K:
         raise ValueError(f"fused_topk: k'={top_k} is outside [1, {MAX_K}]")
-    if user_emb.device.type == "cpu" and item_table.device.type == "cpu":
+    device, t_device = user_emb.device, item_table.device
+    if device.type == "cpu" and t_device.type == "cpu":
         return fused_topk_scores_reference(user_emb, item_table, top_k)
-    if user_emb.device.type != "cuda" or item_table.device != user_emb.device:
+    if device.type != "cuda" or t_device != device:
         raise ValueError(
-            f"fused_topk: tensors on {user_emb.device} and {item_table.device}; "
+            f"fused_topk: tensors on {device} and {t_device}; "
             "both must be on the same CUDA device (or both on the CPU)"
         )
     if user_emb.dtype != torch.float32 or item_table.dtype != torch.float32:
@@ -145,19 +257,17 @@ def fused_topk_scores(user_emb, item_table, top_k):
         raise ValueError("fused_topk: the kernel takes contiguous tensors")
     B, d = user_emb.shape
     I = item_table.shape[0]
-    lib = _lib()
-    vec = d % 4 == 0 and item_table.data_ptr() % 16 == 0
-    K, upb, smem = launch_plan(d, top_k, lib.fused_topk_max_smem(), vec)
-    out_s = torch.empty((B, top_k), dtype=torch.float32, device=user_emb.device)
-    out_i = torch.empty((B, top_k), dtype=torch.int32, device=user_emb.device)
+    if I == 0:
+        raise ValueError("fused_topk: the item table is empty")
+    out_s = torch.empty((B, top_k), dtype=torch.float32, device=device)
+    out_i = torch.empty((B, top_k), dtype=torch.int32, device=device)
     if B == 0:
         return out_s, out_i
-    with torch.cuda.device(user_emb.device):  # the C side launches on the current device
-        stream = torch.cuda.current_stream(user_emb.device).cuda_stream
-        err = lib.fused_topk_launch(
-            user_emb.data_ptr(), item_table.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            B, I, d, top_k, K, upb, int(vec), smem, stream,
-        )
+    if device.index != torch.cuda.current_device():  # the C side launches on the current one
+        with torch.cuda.device(device):
+            err = _launch(user_emb, item_table, out_s, out_i, top_k)
+    else:
+        err = _launch(user_emb, item_table, out_s, out_i, top_k)
     if err != 0:
         raise RuntimeError(f"fused_topk: kernel launch failed with CUDA error {err}")
     launches += 1

@@ -29,6 +29,7 @@ from recbole_fairrec_tpu_torch.data.dataset import factorize
 from recbole_fairrec_tpu_torch.utils import init_seed
 
 import yaml
+from torch_jax_native_cache import private_jax_native_cache  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PROPERTIES = os.path.join(REPO, "recbole_fairrec_tpu", "config", "properties")

@@ -127,13 +127,65 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     assert fused_topk.launches == before
 
 
-@pytest.mark.parametrize("vec", [True, False])
-@pytest.mark.parametrize("d,k", [(64, 11), (64, 256), (64, 4096), (128, 700), (30, 173)])
-def test_launch_plan_fits_shared_memory(d, k, vec):
-    limit = 232448  # H100: 227 KB of opt-in shared memory per block
-    K, upb, smem = fused_topk.launch_plan(d, k, limit, vec)
-    assert K >= k and K & (K - 1) == 0 and smem <= limit
-    assert smem == fused_topk.smem_bytes(d, K, upb, vec)
-    if k <= 256:
-        # three blocks (1 KB reserved each) share an SM's 228 KB
-        assert upb == 8 and 3 * (smem + 1024) <= 228 * 1024
+H100_SMEM = 232448  # 227 KB of opt-in shared memory per block
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("k", [1, 173, 2048, 4096])
+@pytest.mark.parametrize("d", [30, 64, 128])
+def test_launch_plan_fits_shared_memory(d, k):
+    B, I = 6144, 16384 if k == 4096 else 3630
+    plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS)
+    assert plan.bm == fused_topk.BM and plan.smem == fused_topk.smem_bytes(d, plan.chunk)
+    assert plan.smem <= H100_SMEM
+    merge = fused_topk.merge_plan(I, k, plan, H100_SMEM)
+    assert merge.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
+    assert merge.team in (32, fused_topk.MERGE_THREADS)
+    assert merge.kp >= max(min(k, I), merge.team) and merge.kp % merge.team == 0
+    last = I - (plan.splits - 1) * plan.chunk  # items of the last chunk
+    lmax = fused_topk.list_len(k, plan.chunk)
+    assert min(k, plan.chunk) <= lmax <= min(k + fused_topk.SLACK, plan.chunk)
+    assert merge.n == (plan.splits - 1) * lmax + min(lmax, last)
+    assert plan.chunk % fused_topk.BN == 0
+    assert plan.chunk * (plan.splits - 1) < I <= plan.chunk * plan.splits  # no empty chunk
+    assert -(-B // plan.bm) * plan.splits >= 2 * H100_SMS  # >= 2 blocks per SM
+    entries = fused_topk.scratch_entries(B, k, plan)
+    assert entries == B * plan.splits * lmax
+    if k >= plan.chunk:  # every list is a whole chunk: the lists hold all B x I scores
+        assert B * I <= entries < B * (I + plan.chunk)
+
+
+def test_launch_plan_at_the_serving_shape():
+    """B 6144, I 3630, d 64: 96 user blocks x 8 chunks of 512 items; the
+    lists (k' + 32 entries, at most a chunk) take 81 MB at k' 173 and
+    201 MB at k' 2048, 805 MB at k' 4096 with I 16384."""
+    plan = fused_topk.launch_plan(6144, 3630, 64, H100_SMEM, H100_SMS)
+    assert plan == (64, 512, 8, 211968)
+    assert 8 * fused_topk.scratch_entries(6144, 173, plan) == 80_609_280
+    assert 8 * fused_topk.scratch_entries(6144, 2048, plan) == 201_326_592
+    big = fused_topk.launch_plan(6144, 16384, 64, H100_SMEM, H100_SMS)
+    assert 8 * fused_topk.scratch_entries(6144, 4096, big) == 805_306_368
+    merge = fused_topk.merge_plan(3630, 173, plan, H100_SMEM)
+    # 7 lists of 205 and the last chunk's 46 items; a warp per user, 8 per block
+    assert merge == (7 * 205 + 46, 256, 32, True, 8 * (8 * (256 + 16) + 4 * 1482))
+    assert fused_topk.list_len(1, 512) == 1  # an arg-max list needs no slack
+
+
+def test_merge_plan_leaves_room_for_static_shared_memory():
+    """B 6144, I 6176, d 64, k' 480: the lists' keys with the sort's words
+    come to exactly the opt-in limit, which the merge kernel's static bytes
+    would overrun, so the merge reads the keys in place."""
+    plan = fused_topk.launch_plan(6144, 6176, 64, H100_SMEM, H100_SMS)
+    assert plan == (64, 512, 13, 211968)
+    merge = fused_topk.merge_plan(6176, 480, plan, H100_SMEM)
+    assert merge == (6176, 512, 32, False, 8 * 8 * (512 + 32))
+    with_keys = fused_topk.merge_plan(6176, 480, plan, H100_SMEM + fused_topk.MERGE_STATIC_SMEM)
+    assert with_keys.keys_in_smem and with_keys.smem == H100_SMEM
+    for k in range(440, 520):  # every plan near the limit leaves the static bytes free
+        m = fused_topk.merge_plan(6176, k, plan, H100_SMEM)
+        assert m.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
+
+
+def test_launch_plan_rejects_a_width_that_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_topk.launch_plan(6144, 3630, 2048, H100_SMEM, H100_SMS)

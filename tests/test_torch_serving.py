@@ -34,6 +34,7 @@ from recbole_fairrec_tpu_torch.ops import fused_topk
 from recbole_fairrec_tpu_torch.trainer import Trainer
 from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
 from recbole_fairrec_tpu_torch.utils.jax_params import load_jax_params
+from torch_jax_native_cache import private_jax_native_cache  # noqa: F401 (autouse fixture)
 
 METRICS = ["NDCG", "Recall", "Hit", "MRR", "GiniIndex", "PopularityPercentage"]
 
