@@ -6,9 +6,10 @@
 Builds the port's hand-written kernels from the sources in this checkout,
 serves full-sort evaluation of BPR-MF (PFCN_PMF, ``filter_mode: none``,
 ``embedding_size: 64``) at ml-1M scale through the serving entry points
-(``load_data_and_model`` then ``Trainer.evaluate``), checks that the path
-went through the kernels, and holds every kernel against its plain PyTorch
-version at the shapes the serving path gives it. Imports nothing of JAX.
+(``load_data_and_model`` then ``evaluate``), trains the same model on the
+same data through ``run_recbole``, checks that both paths went through the
+kernels, and holds every kernel against its plain PyTorch version at the
+shapes the serving path gives it. Imports nothing of JAX.
 
 Phases, each of which exits non-zero when it fails:
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
@@ -18,7 +19,15 @@ Phases, each of which exits non-zero when it fails:
      weights -> load_data_and_model -> evaluate(valid), evaluate(test) on the
      streaming path, with every launch count set to 0 just before and read
      just after; then the plain-torch dense path must give the same metrics;
-  4. kernels: each kernel against its plain version on the inputs the
+  4. train: run_recbole on the same data (batch 2048, one uniform negative
+     drawn on the card, Adam, streaming evaluation, 3 epochs, a validation
+     after each), launch counts again set to 0 before and read after; the
+     losses fall, the validations and the test went through the kernel, the
+     checkpoint read back gives the same test metrics; negatives drawn on
+     the card are unused pairs and uniform; one step on the card equals one
+     on the CPU; seconds per epoch and per validation and the split of one
+     step are printed;
+  5. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on gaussian inputs of the same shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
      (4096, over 16,384 items), on a tie-heavy integer input and at d 30,
@@ -30,6 +39,8 @@ The second-to-last line is ``{"kernels": [...]}`` and the last line
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -47,6 +58,8 @@ PACKAGE = "recbole_fairrec_tpu_torch"
 N_USERS, N_ITEMS, N_INTER = 6040, 3629, 836478
 DATASET = "ml1m-smoke"
 TOPK = 10
+TRAIN_EPOCHS = 3
+SPLIT_STEPS = 60  # steps over which one train step is split into its parts
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
@@ -110,8 +123,27 @@ def serving_config(data_root, work_dir, extra=None):
         "state": "WARNING",
         "checkpoint_dir": os.path.join(work_dir, "saved"),
         "log_root": os.path.join(work_dir, "log"),
+        # the first ETL of a run is cached beside the checkpoints; the later
+        # entry points (load_data_and_model, run_recbole) read it back
+        "save_dataset": True,
+        "save_dataloaders": True,
         **(extra or {}),
     }
+
+
+def train_config(data_root, work_dir, extra=None):
+    """bench.py's training settings (bench.py:80-104) on the serving
+    configuration, with streaming evaluation and a validation every epoch."""
+    return serving_config(data_root, work_dir, {
+        "train_batch_size": 2048,
+        "neg_sampling": {"uniform": 1},
+        "device_neg_sampling": True,
+        "learner": "adam",
+        "streaming_eval": True,
+        "epochs": TRAIN_EPOCHS,
+        "eval_step": 1,
+        **(extra or {}),
+    })
 
 
 def seeded_weights(model, generator, std=0.3, quantum=1.0 / 64):
@@ -158,24 +190,25 @@ def serve(data_root, work_dir, extra_cfg=None):
         ckpt, config_dict={**(extra_cfg or {}), "streaming_eval": True,
                            "log_root": cfg["log_root"]},
     )
+    _require_card_trainer(trainer2, "serve")
     stream = {}
     for name, loader in (("valid", valid2), ("test", test2)):
         t0 = time.perf_counter()
-        stream[name] = dict(trainer2.evaluate(loader))
+        stream[name] = dict(trainer2.evaluate(loader)["none"])
         _sync()
         stream[name + "_s"] = time.perf_counter() - t0
-        if trainer2._last_eval_path != _streaming_path_name(trainer2):
+        if trainer2._last_eval_path != "streaming-kernel":
             fail(f"evaluate({name}) took the path {trainer2._last_eval_path!r}")
     launches = {name: mod.launches for name, mod in modules.items()}
     for name, n in launches.items():
-        if n == 0 and trainer2.device.type == "cuda":
+        if n == 0:
             fail(f"the serving path launched the kernel {name} no time")
 
     config2["streaming_eval"] = False
     dense = {}
     for name, loader in (("valid", valid2), ("test", test2)):
         t0 = time.perf_counter()
-        dense[name] = dict(trainer2.evaluate(loader))
+        dense[name] = dict(trainer2.evaluate(loader)["none"])
         _sync()
         dense[name + "_s"] = time.perf_counter() - t0
         if trainer2._last_eval_path != "fused":
@@ -194,15 +227,334 @@ def serve(data_root, work_dir, extra_cfg=None):
     return launches, trainer2, test2
 
 
-def _streaming_path_name(trainer):
-    return "streaming-kernel" if trainer.device.type == "cuda" else "streaming"
+@contextlib.contextmanager
+def _timed_fit(modules):
+    """While installed, every trained epoch and every validation of the
+    port's trainers is timed (host clock, the card synchronised before and
+    after) and the kernels' launch counts are read around each validation.
+    Yields the record; the trainers' methods are put back on exit."""
+    from recbole_fairrec_tpu_torch.trainer import PFCNTrainer, Trainer
+
+    record = {"trainers": [], "epoch_s": [], "examples": [], "valid_s": [],
+              "valid_results": [], "valid_launches": [], "valid_paths": []}
+    run_epoch, valid_epoch = Trainer._run_epoch, PFCNTrainer._valid_epoch
+
+    def timed_run_epoch(self, train_data, *args, **kwargs):
+        if not any(self is t for t in record["trainers"]):
+            record["trainers"].append(self)
+        _sync()
+        t0 = time.perf_counter()
+        out = run_epoch(self, train_data, *args, **kwargs)
+        _sync()
+        record["epoch_s"].append(time.perf_counter() - t0)
+        record["examples"].append(len(train_data.dataset))
+        return out
+
+    def timed_valid_epoch(self, *args, **kwargs):
+        before = {name: mod.launches for name, mod in modules.items()}
+        _sync()
+        t0 = time.perf_counter()
+        score, result = valid_epoch(self, *args, **kwargs)
+        _sync()
+        record["valid_s"].append(time.perf_counter() - t0)
+        record["valid_results"].append(dict(result))
+        record["valid_launches"].append(
+            {name: mod.launches - before[name] for name, mod in modules.items()})
+        record["valid_paths"].append(self._last_eval_path)
+        return score, result
+
+    Trainer._run_epoch, PFCNTrainer._valid_epoch = timed_run_epoch, timed_valid_epoch
+    try:
+        yield record
+    finally:
+        Trainer._run_epoch, PFCNTrainer._valid_epoch = run_epoch, valid_epoch
+
+
+def _check_metrics(label, result):
+    for metric, value in result.items():
+        if not (math.isfinite(value) and 0.0 <= value <= 1.0):
+            fail(f"{label}: metric {metric} = {value} is not in [0, 1]")
+
+
+def train(data_root, work_dir, card, extra_cfg=None):
+    """Phase 4: the training main path through ``run_recbole``. Returns the
+    launch counts of its run."""
+    from recbole_fairrec_tpu_torch import load_data_and_model, run_recbole
+
+    cfg = train_config(data_root, work_dir, extra_cfg)
+    modules = {k["name"]: _kernel_module(k) for k in KERNELS}
+    for mod in modules.values():
+        mod.launches = 0
+    with _timed_fit(modules) as rec:
+        t0 = time.perf_counter()
+        result = run_recbole(model="PFCN_PMF", dataset=DATASET, config_dict=cfg)
+        _sync()
+        total_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in modules.items()}
+
+    if len(rec["trainers"]) != 1:
+        fail(f"train: run_recbole trained {len(rec['trainers'])} trainers, expected 1")
+    trainer = rec["trainers"][0]
+    _require_card_trainer(trainer, "train")
+    losses = [trainer.train_loss_dict[e] for e in sorted(trainer.train_loss_dict)]
+    if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
+        fail(f"train: epoch losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_EPOCHS} epochs: {losses}")
+    if len(rec["valid_s"]) != TRAIN_EPOCHS:
+        fail(f"train: {len(rec['valid_s'])} validations, expected {TRAIN_EPOCHS}")
+    for epoch, (res, n, path) in enumerate(
+            zip(rec["valid_results"], rec["valid_launches"], rec["valid_paths"])):
+        _check_metrics(f"train: validation {epoch}", res)
+        if path != "streaming-kernel":
+            fail(f"train: validation {epoch} took the path {path!r}")
+        for name, count in n.items():
+            if count < 1:
+                fail(f"train: validation {epoch} launched the kernel {name} no time")
+    if trainer._last_eval_path != "streaming-kernel":
+        fail(f"train: the test evaluation took the path {trainer._last_eval_path!r}")
+    for name, count in launches.items():
+        in_valid = sum(n[name] for n in rec["valid_launches"])
+        if count - in_valid < 1:
+            fail(f"train: the test evaluation launched the kernel {name} no time")
+    if list(result["test_result"]) != ["none"]:
+        fail(f"train: test_result keys {list(result['test_result'])}")
+    _check_metrics("train: test", result["test_result"]["none"])
+    if result["best_valid_result"] not in rec["valid_results"]:
+        fail("train: best_valid_result is none of the validations' results")
+
+    examples = rec["examples"][0]
+    first_s, later_s = rec["epoch_s"][0], rec["epoch_s"][1:]
+    row = {
+        "run_recbole_s": total_s, "examples_per_epoch": examples,
+        "steps_per_epoch": -(-examples // cfg["train_batch_size"]),
+        "first_epoch_s": first_s, "first_epoch_examples_per_s": examples / first_s,
+        "later_epochs_s": later_s,
+        "later_epochs_examples_per_s": [examples / t for t in later_s],
+        "validation_s": rec["valid_s"], "epoch_losses": losses, "card": card,
+    }
+    print(f"train: epochs {json.dumps(row)}", flush=True)
+    print(f"train: best valid {result['best_valid_result']}; test {result['test_result']}; "
+          f"launches on the main path {launches}", flush=True)
+
+    # the checkpoint fit saved, read back through the serving entry point
+    config2, _, trainer2, _, train2, _, test2 = load_data_and_model(
+        trainer.saved_model_file, config_dict={"log_root": cfg["log_root"]})
+    _require_card_trainer(trainer2, "train read-back")
+    back = trainer2.evaluate(test2)
+    if {k: dict(v) for k, v in back.items()} != \
+            {k: dict(v) for k, v in result["test_result"].items()}:
+        fail(f"train: the checkpoint read back gives {back}, run_recbole gave "
+             f"{result['test_result']}")
+    print("train: the checkpoint read back gives the same test metrics", flush=True)
+
+    check_negatives(trainer2, train2, card)
+    check_step_card_against_cpu(trainer2, train2, cfg, trainer.saved_model_file)
+    time_step_split(trainer2, train2, card)
+    return launches
+
+
+def check_negatives(trainer, train_data, card):
+    """Negatives drawn on the card: one batch against the host's used-pair
+    set, and a histogram of 2^20 draws for the PAD user (no history).
+
+    Uniformity bound: Pearson's chi-square over the n = item_num - 1 items
+    has mean n - 1 and standard deviation sqrt(2 (n - 1)); the draws pass
+    below the mean plus 6 standard deviations."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.ops.neg_sampling import sample_negatives
+
+    trainer._maybe_enable_device_sampling(train_data)
+    used = trainer._device_used_keys
+    if used is None or used.device.type != "cuda":
+        fail("negatives: the used-pair table is not on the card")
+    ds = train_data.dataset
+    item_num = ds.item_num
+    u = np.asarray(ds.inter_feat[ds.uid_field])
+    i = np.asarray(ds.inter_feat[ds.iid_field])
+    users = torch.as_tensor(u[: train_data.batch_size]).to(trainer.device)
+    negs = sample_negatives(trainer.generator, users, used, item_num)
+    if negs.device.type != "cuda" or negs.shape != users.shape:
+        fail(f"negatives: output on {negs.device} of shape {tuple(negs.shape)}")
+    negs = negs.cpu().numpy()
+    if negs.min() < 1 or negs.max() >= item_num:
+        fail(f"negatives: ids in [{negs.min()}, {negs.max()}], item_num {item_num}")
+    used_keys = np.unique(u.astype(np.int64) * item_num + i)
+    drawn = users.cpu().numpy().astype(np.int64) * item_num + negs
+    if np.isin(drawn, used_keys).any():
+        fail("negatives: a drawn pair is a used pair")
+
+    if (u == 0).any():
+        fail("negatives: the PAD user has interactions")
+    n_draws = 1 << 20
+    pad_users = torch.zeros(n_draws, dtype=torch.int64, device=trainer.device)
+    draws = sample_negatives(trainer.generator, pad_users, used, item_num)
+    counts = torch.bincount(draws, minlength=item_num).cpu().numpy()
+    if counts[0] != 0:
+        fail("negatives: the PAD item 0 was drawn")
+    bins = item_num - 1
+    expected = n_draws / bins
+    chi2 = float(((counts[1:] - expected) ** 2 / expected).sum())
+    bound = (bins - 1) + 6.0 * math.sqrt(2.0 * (bins - 1))
+    print(f"negatives: {len(negs)} draws for one batch hit no used pair; {n_draws} draws "
+          f"over {bins} items: chi-square {chi2:.1f} (bound {bound:.1f}); {card}", flush=True)
+    if chi2 > bound:
+        fail(f"negatives: chi-square {chi2:.1f} above {bound:.1f}: the draws are not uniform")
+
+
+def check_step_card_against_cpu(trainer, train_data, cfg, ckpt,
+                                param_atol=1e-5, loss_rtol=1e-6):
+    """One train step on the card and one on the CPU from the same weights,
+    Adam state (both resume the checkpoint), batch and negatives: parameters
+    within ``param_atol`` (abs), losses within ``loss_rtol`` (rel)."""
+    from recbole_fairrec_tpu_torch import Config
+
+    cpu_config = Config(model="PFCN_PMF", dataset=DATASET,
+                        config_dict={**cfg, "use_gpu": False})
+    cpu_trainer = type(trainer)(cpu_config, copy.deepcopy(trainer.model))
+    if cpu_trainer.device.type != "cpu":
+        fail("step: the comparison trainer is not on the CPU")
+    for t in (trainer, cpu_trainer):
+        t.resume_checkpoint(ckpt)
+        t.model.train()
+    interaction = next(iter(train_data))
+    train_data.pr = 0
+    fields = trainer.model.loss_batch_fields("calculate_loss")
+    batch = trainer._inject_negatives(trainer._train_batch(interaction, fields), "calculate_loss")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss = float(trainer._train_step(batch, "calculate_loss", None, trainer.optimizer))
+    cpu_loss = float(cpu_trainer._train_step(cpu_batch, "calculate_loss", None,
+                                             cpu_trainer.optimizer))
+    gap = max(
+        float((p.detach().cpu() - q.detach()).abs().max())
+        for p, q in zip(trainer.model.parameters(), cpu_trainer.model.parameters())
+    )
+    print(f"step: card loss {loss!r}, CPU loss {cpu_loss!r}, largest parameter gap {gap:.3e} "
+          f"(limits: rel {loss_rtol}, abs {param_atol})", flush=True)
+    if not math.isfinite(loss) or abs(loss - cpu_loss) > loss_rtol * abs(cpu_loss):
+        fail(f"step: the card's loss {loss} and the CPU's {cpu_loss} differ")
+    if not gap <= param_atol:
+        fail(f"step: parameters differ by {gap} after one step")
+
+
+def _device_busy_ms(fn, calls=20):
+    """Sum of the device time of every CUDA kernel ``fn`` launches, per call
+    (``torch.profiler``): the card's busy time, without its waits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        _sync()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        self_us = getattr(ev, "self_device_time_total", None)
+        if self_us is None:
+            self_us = ev.self_cuda_time_total
+        total_us += self_us
+    return total_us / calls / 1e3
+
+
+def time_step_split(trainer, train_data, card, steps=SPLIT_STEPS):
+    """One train step split into its parts over ``steps`` steps of the real
+    loader: for each part the span between CUDA events on the card's
+    timeline (which holds the card's waits for the host) and the host's time,
+    beside the loader's and the copy's host time and the whole step's wall
+    time; then the card's busy time per part, from the profiler, on one
+    batch. The parts are those of ``Trainer._train_step``, in its order."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.ops.neg_sampling import sample_negatives
+
+    model, optimizer = trainer.model, trainer.optimizer
+    fields = model.loss_batch_fields("calculate_loss")
+    model.train()
+    it = iter(train_data)
+    for _ in range(5):  # warm-up
+        trainer._train_step(trainer._train_batch(next(it), fields), "calculate_loss", None,
+                            optimizer)
+    marks = []
+    host = dict.fromkeys(("loader", "copy", "sample_negatives", "forward_backward", "optimizer"),
+                         0.0)
+    _sync()
+    t_start = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        interaction = next(it)
+        t1 = time.perf_counter()
+        batch = trainer._train_batch(interaction, fields)
+        t2 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        batch = trainer._inject_negatives(batch, "calculate_loss")
+        t3 = time.perf_counter()
+        ev[1].record()
+        loss = model.calculate_loss(batch)
+        loss.backward()
+        t4 = time.perf_counter()
+        ev[2].record()
+        optimizer.step()
+        t5 = time.perf_counter()
+        ev[3].record()
+        marks.append(ev)
+        for key, dt in zip(host, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            host[key] += dt
+    _sync()
+    wall_ms = (time.perf_counter() - t_start) / steps * 1e3
+    train_data.pr = 0
+    if not math.isfinite(float(loss.detach())):
+        fail("step split: the loss is not finite")
+    parts = ("sample_negatives", "forward_backward", "optimizer")
+    span_ms = {part: sum(ev[j].elapsed_time(ev[j + 1]) for ev in marks) / steps
+               for j, part in enumerate(parts)}
+    host_ms = {key: value / steps * 1e3 for key, value in host.items()}
+
+    users = batch[model.USER_ID]
+    used, n_items = trainer._device_used_keys, model.n_items
+
+    def forward_backward():
+        optimizer.zero_grad(set_to_none=True)
+        model.calculate_loss(batch).backward()
+
+    busy_ms = {
+        "sample_negatives": _device_busy_ms(
+            lambda: sample_negatives(trainer.generator, users, used, n_items)),
+        "forward_backward": _device_busy_ms(forward_backward),
+        "optimizer": _device_busy_ms(optimizer.step),
+    }
+    busy_total = sum(busy_ms.values())
+    row = {
+        "steps": steps, "batch": int(users.shape[0]), "wall_ms_per_step": wall_ms,
+        "host_ms": host_ms, "host_ms_per_step": sum(host_ms.values()),
+        "event_span_ms": span_ms, "device_busy_ms": busy_ms,
+        "device_busy_ms_per_step": busy_total,
+        "device_idle_share": 1.0 - busy_total / wall_ms, "card": card,
+    }
+    print(f"train: step split {json.dumps(row)}", flush=True)
+
+
+def _require_card_trainer(trainer, phase):
+    """The registry's trainer for PFCN_PMF, on the card: a configuration that
+    lands on the CPU would pass every later check without a kernel."""
+    from recbole_fairrec_tpu_torch.trainer import PFCN_PMFTrainer
+
+    if not isinstance(trainer, PFCN_PMFTrainer):
+        fail(f"{phase}: the trainer is a {type(trainer).__name__}, not a PFCN_PMFTrainer")
+    if trainer.device.type != "cuda":
+        fail(f"{phase}: the trainer is on {trainer.device}, not on the card")
+    if next(trainer.model.parameters()).device.type != "cuda":
+        fail(f"{phase}: the model's parameters are not on the card")
 
 
 def _sync():
     import torch
 
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
 
 
 def _kernel_module(kernel):
@@ -368,7 +720,10 @@ def main():
     print(f"serve: wrote the dataset in {time.perf_counter() - t0:.3f} s", flush=True)
     launches, trainer, test_data = serve(data_root, work)
 
-    # phase 4: every kernel against its plain version
+    # phase 4: the training main path
+    train_launches = train(data_root, work, card)
+
+    # phase 5: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     U, T, k_prime = serving_inputs(trainer, test_data)
     gen = torch.Generator().manual_seed(2020)
@@ -390,7 +745,9 @@ def main():
     main_row = rows[0]
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
-        "replaces": k["replaces"], "launches": launches[k["name"]],
+        "replaces": k["replaces"],
+        "launches": launches[k["name"]] + train_launches[k["name"]],
+        "launches_by_path": {"serve": launches[k["name"]], "train": train_launches[k["name"]]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

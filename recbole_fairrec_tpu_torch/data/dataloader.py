@@ -5,7 +5,11 @@ payloads, batch-size rules and numpy RNG call order:
 
 * ``TrainDataLoader`` — raw-row batches of ``train_batch_size // times``
   rows, expanded by the negative-sampling strategy (pairwise ``neg_*``
-  columns / pointwise pos+neg stacking with 1/0 labels);
+  columns / pointwise pos+neg stacking with 1/0 labels). With
+  ``device_neg_sampling`` (pairwise, one uniform negative, not dynamic) it
+  ships the raw positives and the trainer draws the negatives on its device
+  (``ops/neg_sampling.py``); with ``dynamic`` it mines hard negatives
+  through the live trainer's ``score_batch``;
 * ``FullSortEvalDataLoader`` — yields (user_df, (history_u, history_i),
   positive_u, positive_i) with history = used − positive, from flat CSR
   (indptr, values) structures built once at construction.
@@ -152,8 +156,15 @@ class TrainDataLoader(AbstractDataLoader):
     def _bind_neg_spec(self, config, dataset):
         self.uid_field = dataset.uid_field
         self.iid_field = dataset.iid_field
-        self.neg_spec = _NegSpec(
-            config, dataset, config["MODEL_INPUT_TYPE"], config["train_neg_sample_args"]
+        neg_sample_args = config["train_neg_sample_args"]
+        self.neg_spec = _NegSpec(config, dataset, config["MODEL_INPUT_TYPE"], neg_sample_args)
+        # device sampling covers the pairwise 1-negative shape
+        self.device_neg_sampling = bool(
+            config["device_neg_sampling"]
+            and self.neg_spec.dl_format == InputType.PAIRWISE
+            and self.neg_spec.strategy == "by"
+            and neg_sample_args.get("by") == 1
+            and neg_sample_args.get("dynamic", "none") in (None, "none")
         )
 
     @property
@@ -198,16 +209,32 @@ class TrainDataLoader(AbstractDataLoader):
         self.dataset.shuffle()
 
     def _neg_sampling(self, block: Interaction) -> Interaction:
+        if self.device_neg_sampling:
+            # the trainer draws the negatives in its step
+            return block
         if self.neg_spec.args.get("dynamic", "none") not in (None, "none"):
-            raise NotImplementedError(
-                "dynamic (hard) negative sampling comes with the training slice of the port"
-            )
+            return self._mine_hard_negatives(block)
         if self.neg_spec.strategy == "by":
             users = np.asarray(block[self.uid_field])
             items = np.asarray(block[self.iid_field])
             negs = self.sampler.sample_by_user_ids(users, items, self.neg_spec.sample_num)
             return self.neg_spec.expand(self.dataset, block, negs)
         return block
+
+    def _mine_hard_negatives(self, block: Interaction) -> Interaction:
+        """Score candidate_num× candidates with the live model (the trainer
+        registered through ``get_model``) and keep the best-scored one."""
+        candidate_num = self.neg_spec.args["dynamic"]
+        users = np.asarray(block[self.uid_field])
+        items = np.asarray(block[self.iid_field])
+        n_draw = self.neg_spec.sample_num * candidate_num
+        candidates = self.sampler.sample_by_user_ids(users, items, n_draw)
+        scored = block.repeat(n_draw)
+        scored.update(Interaction({self.iid_field: candidates}))
+        scores = np.asarray(self.model.score_batch(scored)).reshape(candidate_num, -1)
+        grid = candidates.reshape(candidate_num, -1)
+        hardest = grid[scores.argmax(axis=0), np.arange(grid.shape[1])].reshape(-1)
+        return self.neg_spec.expand(self.dataset, block, hardest)
 
     def _next_batch_data(self):
         cur_data = self._neg_sampling(self.dataset[self.pr : self.pr + self.step])

@@ -5,7 +5,7 @@ models stateless and threads a parameter pytree through pure methods; here a
 model is an ``nn.Module`` that owns its tables, and the contract methods take
 only the batch:
 
-    loss = model.calculate_loss(batch, sst_list)
+    loss = model.calculate_loss(batch, sst_list)   # a scalar tensor with grad
     scores = model.predict(batch, sst_list)
     scores = model.full_sort_predict(batch, sst_list)
 
@@ -21,6 +21,21 @@ import torch
 from torch import nn
 
 from ..utils import InputType, ModelType, set_color
+
+
+def batch_weights(batch, like):
+    """Per-row validity weights: the batch's ``__weight__`` column (1.0 for
+    real rows, 0.0 for padding rows) or all ones shaped like ``like``."""
+    w = batch.get("__weight__")
+    if w is None:
+        return torch.ones_like(like, dtype=torch.float32)
+    return w.float()
+
+
+def wmean(values, weights):
+    """Weighted mean that reduces exactly to ``.mean()`` when all weights
+    are 1."""
+    return torch.sum(values * weights) / torch.sum(weights).clamp_min(1.0)
 
 
 class AbstractRecommender(nn.Module):
@@ -87,6 +102,20 @@ class FairRecommender(AbstractRecommender):
     def calculate_dis_loss(self, batch, sst_list=None):
         """Discriminator objective for adversarial models."""
         raise NotImplementedError
+
+    def loss_batch_fields(self, loss_name, sst_list=None):
+        """Batch columns the given loss reads; the trainer moves only those
+        to the card. None = every column."""
+        return None
+
+    def frozen_param_keys(self):
+        """Top-level parameter names the optimizer must leave untouched."""
+        return []
+
+    def param_groups(self):
+        """Adversarial optimizer groups: group name → top-level parameter
+        names. Default: no groups."""
+        return {}
 
     @staticmethod
     def lookup(table: nn.Embedding, ids):

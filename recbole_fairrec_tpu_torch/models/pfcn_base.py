@@ -8,8 +8,11 @@ Counterpart of ``recbole_fairrec_tpu/models/pfcn_base.py``. With
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from ..utils import InputType
-from .base import FairRecommender
+from .base import FairRecommender, batch_weights, wmean
 
 
 class PFCNBase(FairRecommender):
@@ -41,3 +44,37 @@ class PFCNBase(FairRecommender):
     def _user_item_embed(self, user, item, sst_list):
         """Backbone-specific: returns (user_repr, item_repr)."""
         raise NotImplementedError
+
+    def _pairwise_scores(self, batch, user, pos_item, neg_item, sst_list):
+        """Backbone-specific raw (pos_score, neg_score) for BPR."""
+        raise NotImplementedError
+
+    def loss_batch_fields(self, loss_name, sst_list=None):
+        return (self.USER_ID, self.ITEM_ID, self.POS_ITEM_ID, self.NEG_ITEM_ID,
+                *self.sst_attrs, "__weight__")
+
+    def calculate_loss(self, batch, sst_list=None):
+        """BPR over the batch's (user, positive, negative) rows: the mean of
+        −log(1e-10 + σ(pos − neg)), weighted by ``__weight__`` when the batch
+        carries one."""
+        user = batch[self.USER_ID]
+        pos_s, neg_s = self._pairwise_scores(
+            batch, user, batch[self.POS_ITEM_ID], batch[self.NEG_ITEM_ID], sst_list
+        )
+        elem = -torch.log(1e-10 + torch.sigmoid(pos_s - neg_s))
+        if "__weight__" not in batch:
+            return elem.mean()
+        return wmean(elem, batch_weights(batch, user))
+
+    @torch.no_grad()
+    def get_sst_embed(self, user_data, sst_list=None):
+        """User representations of users 1..n−1 and their sensitive
+        attributes (``user_data`` is the user feature table without its PAD
+        row), for offline attacker evaluation."""
+        device = next(self.parameters()).device
+        user_indices = torch.arange(1, self.n_users, device=device)
+        sst_list = tuple(self.sst_attrs)  # filter_mode none: every attribute
+        ret = {sst: np.asarray(user_data[sst])[: self.n_users - 1] for sst in sst_list}
+        user_repr, _ = self._user_item_embed(user_indices, None, sst_list)
+        ret["embedding"] = user_repr.cpu().numpy()
+        return ret

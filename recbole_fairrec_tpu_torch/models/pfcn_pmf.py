@@ -1,8 +1,7 @@
 """PFCN_PMF — plain MF backbone (BPR-MF with ``filter_mode: none``).
 
 Counterpart of ``recbole_fairrec_tpu/models/pfcn_pmf.py``: dot-product
-scores, sigmoid at predict. The BPR training step comes with the training
-slice of the port.
+scores, sigmoid at predict, BPR training.
 """
 
 from __future__ import annotations
@@ -31,6 +30,11 @@ class PFCN_PMF(PFCNBase):
         user_e = self.lookup(self.user_embedding, user)
         item_e = self.lookup(self.item_embedding, item) if item is not None else None
         return user_e, item_e
+
+    def _pairwise_scores(self, batch, user, pos_item, neg_item, sst_list):
+        user_e, pos_e = self._user_item_embed(user, pos_item, sst_list)
+        neg_e = self.lookup(self.item_embedding, neg_item)
+        return (user_e * pos_e).sum(-1), (user_e * neg_e).sum(-1)
 
     def predict(self, batch, sst_list=None):
         user_e, item_e = self._user_item_embed(

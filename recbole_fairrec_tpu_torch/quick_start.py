@@ -1,21 +1,24 @@
 """Public entry points.
 
-Counterpart of ``recbole_fairrec_tpu/quick_start.py``. The serving entry
-point is ``load_data_and_model(model_file)`` followed by
+Counterpart of ``recbole_fairrec_tpu/quick_start.py``. ``run_recbole``
+trains a model from a config, reloads the best checkpoint and tests it;
+``objective_function`` is one such trial for a hyperparameter search. The
+serving entry point is ``load_data_and_model(model_file)`` followed by
 ``trainer.evaluate(test_data)``; it reads checkpoints written by this
-package or by the JAX package. ``run_recbole`` and ``objective_function``
-train, and come with the training slice of the port.
+package or by the JAX package. Every entry point runs on the card unless
+the config says ``use_gpu: False``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 from logging import getLogger
 
 from .config import Config
 from .data import create_dataset, data_preparation
-from .utils import get_model, get_trainer, init_logger, init_seed
+from .utils import get_model, get_trainer, init_logger, init_seed, set_color
 
 _JAX_PACKAGE = "recbole_fairrec_tpu"
 _PORT_PACKAGE = "recbole_fairrec_tpu_torch"
@@ -58,6 +61,75 @@ def load_checkpoint(model_file):
     files this program or the JAX package wrote)."""
     with open(model_file, "rb") as f:
         return _CheckpointUnpickler(f).load()
+
+
+def _refuse_multihost(config):
+    if config["multihost"]:
+        raise NotImplementedError(
+            "multihost (several processes over one device set) comes with the "
+            "parallel layer of the port"
+        )
+
+
+def _train_and_test(config, saved, verbose, callback_fn=None):
+    """Data → model → trainer → fit → test, shared by the two training
+    entry points."""
+    dataset = create_dataset(config)
+    getLogger().info(dataset)
+    train_data, valid_data, test_data = data_preparation(config, dataset)
+
+    generator = init_seed(config["seed"], config["reproducibility"])
+    model_obj = get_model(config["model"])(config, train_data.dataset, generator=generator)
+    getLogger().info(model_obj)
+    trainer = get_trainer(config["MODEL_TYPE"], config["model"])(config, model_obj)
+
+    best_valid_score, best_valid_result = trainer.fit(
+        train_data, valid_data, verbose=verbose, saved=saved,
+        show_progress=config["show_progress"], callback_fn=callback_fn,
+    )
+    test_result = trainer.evaluate(
+        test_data, load_best_model=saved, show_progress=config["show_progress"]
+    )
+    return {
+        "best_valid_score": best_valid_score,
+        "valid_score_bigger": config["valid_metric_bigger"],
+        "best_valid_result": best_valid_result,
+        "test_result": test_result,
+    }
+
+
+def run_recbole(model=None, dataset=None, config_file_list=None, config_dict=None,
+                saved=True, callback_fn=None):
+    """Train and test a model from config.
+
+    ``callback_fn(epoch_idx, valid_score)`` is forwarded to ``Trainer.fit``
+    (a hook after every validation).
+
+    Returns a dict with best_valid_score / valid_score_bigger /
+    best_valid_result / test_result.
+    """
+    config = Config(
+        model=model, dataset=dataset, config_file_list=config_file_list, config_dict=config_dict
+    )
+    _refuse_multihost(config)
+    init_seed(config["seed"], config["reproducibility"])
+    init_logger(config)
+    logger = getLogger()
+    logger.info(config)
+
+    result = _train_and_test(config, saved, verbose=True, callback_fn=callback_fn)
+    logger.info(set_color("best valid ", "yellow") + f": {result['best_valid_result']}")
+    logger.info(set_color("test result", "yellow") + f": {result['test_result']}")
+    return result
+
+
+def objective_function(config_dict=None, config_file_list=None, saved=True):
+    """One train+test trial for hyperparameter search."""
+    config = Config(config_dict=config_dict, config_file_list=config_file_list)
+    _refuse_multihost(config)
+    init_seed(config["seed"], config["reproducibility"])
+    logging.basicConfig(level=logging.ERROR)
+    return {"model": config["model"], **_train_and_test(config, saved, verbose=False)}
 
 
 def load_data_and_model(model_file, config_dict=None):

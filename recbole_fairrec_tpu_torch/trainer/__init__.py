@@ -1,3 +1,4 @@
 from .trainer import AbstractTrainer, Trainer
+from .adversarial import PFCN_PMFTrainer, PFCNTrainer
 
-__all__ = ["AbstractTrainer", "Trainer"]
+__all__ = ["AbstractTrainer", "Trainer", "PFCNTrainer", "PFCN_PMFTrainer"]

@@ -1,9 +1,21 @@
-"""Base Trainer — the evaluation half.
+"""Base Trainer: train step, early stopping, checkpoints, evaluation loop.
 
-Counterpart of ``recbole_fairrec_tpu/trainer/trainer.py``: construction,
-batch padding, eval macro-batching, the dense and streaming full-sort eval
-paths, ``evaluate`` and the checkpoint payload. Training (``fit``, the train
-step, the optimizers) comes with the training slice of the port.
+Counterpart of ``recbole_fairrec_tpu/trainer/trainer.py``: the optimizer
+zoo, the train step and the epoch loop (``fit``), checkpoints and resume,
+and full-sort evaluation (batch padding, eval macro-batching, the dense and
+streaming paths, ``evaluate``).
+
+Training. One step is ``zero_grad`` → device negatives when the loader runs
+in ``device_neg_sampling`` mode → the model's loss → ``backward`` → gradient
+clipping → the optimizer's step. Every learner follows the JAX package's
+update rule (its optax chain), not PyTorch's default where the two differ;
+see ``_build_optimizer`` and ``trainer/optim.py``. Train batches are not
+padded and carry no ``__weight__``: static shapes are XLA's need, and the
+weighted mean over all-ones weights is the plain mean. The epoch loss is the
+sum of the step losses, accumulated on the device and read once per epoch.
+``train_macro_steps`` and ``train_macro_rows`` (the JAX package's fusing of
+steps into one dispatch, which changes no result there) are accepted and
+ignored.
 
 Full-sort evaluation has two paths, as in the JAX package:
 
@@ -23,6 +35,7 @@ import itertools
 import os
 import pickle
 from logging import getLogger
+from time import time
 
 import numpy as np
 import torch
@@ -30,9 +43,42 @@ import torch
 from ..data.dataloader import FullSortEvalDataLoader
 from ..data.interaction import Interaction, cat_interactions
 from ..evaluator import Collector, Evaluator
-from ..utils import EvaluatorType, _bucket, ensure_dir, get_local_time, set_color
+from ..utils import (
+    EvaluatorType,
+    _bucket,
+    calculate_valid_score,
+    dict2str,
+    early_stopping,
+    ensure_dir,
+    get_local_time,
+    set_color,
+)
+from ..utils.jax_params import load_jax_opt_state, load_jax_params, to_jax_params
+from ..utils.loggers import WandbLogger, get_tensorboard
+from .optim import Adagrad, RMSprop, clip_by_global_norm
 
 NEG_INF = -np.inf
+
+
+def _flatten_result(result):
+    flat = {}
+    for k, v in (result or {}).items():
+        if isinstance(v, dict):
+            flat.update({f"{k}/{kk}": vv for kk, vv in v.items()})
+        else:
+            flat[k] = v
+    return flat
+
+
+def _tree_map_tensors(fn, tree, leaf_type):
+    """Apply ``fn`` to every ``leaf_type`` leaf of a dict/list/tuple tree."""
+    if isinstance(tree, leaf_type):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map_tensors(fn, v, leaf_type) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_tensors(fn, v, leaf_type) for v in tree)
+    return tree
 
 
 class AbstractTrainer:
@@ -53,9 +99,24 @@ class Trainer(AbstractTrainer):
     def __init__(self, config, model):
         super().__init__(config, model)
         self.logger = getLogger()
+        if config["mesh_shape"]:
+            raise NotImplementedError(
+                "mesh_shape (sharded execution) comes with the parallel layer of the "
+                "port (ROADMAP Queue A, parallel layer)"
+            )
+        self.tensorboard = get_tensorboard(self.logger)
+        self.wandblogger = WandbLogger(config)
         self.device = config["device"]
         self.model = model.to(self.device)
+        self.learner = config["learner"]
+        self.learning_rate = config["learning_rate"]
+        self.epochs = config["epochs"]
+        self.eval_step = min(config["eval_step"], self.epochs)
+        self.stopping_step = config["stopping_step"]
+        self.clip_grad_norm = config["clip_grad_norm"]
+        self.valid_metric = config["valid_metric"].lower()
         self.valid_metric_bigger = config["valid_metric_bigger"]
+        self.weight_decay = config["weight_decay"] or 0.0
         self.checkpoint_dir = config["checkpoint_dir"]
         ensure_dir(self.checkpoint_dir)
         saved_model_file = (
@@ -68,19 +129,344 @@ class Trainer(AbstractTrainer):
         self.cur_step = 0
         self.best_valid_score = -np.inf if self.valid_metric_bigger else np.inf
         self.best_valid_result = None
+        self.train_loss_dict = {}
+
+        # device-side randomness (negatives drawn in the step): a generator
+        # on the trainer's device; init_seed's generator lives on the CPU
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(config["seed"] or 0))
+        self._device_used_keys = None
+        self.optimizer = self._build_optimizer()
 
         self.eval_type = config["eval_type"]
         self.eval_collector = Collector(config)
         self.evaluator = Evaluator(config)
         self.tot_item_num = None
 
+    # ------------------------------------------------------------ optimizer
+
+    def _named_top_level_params(self):
+        """(top-level name, parameter) pairs: ``user_embedding.weight`` goes
+        by ``user_embedding``, the key of the JAX package's param tree."""
+        return [(name.split(".")[0], p) for name, p in self.model.named_parameters()]
+
+    def _build_optimizer(self, params=None, learner=None, learning_rate=None,
+                         weight_decay=None):
+        """The optimizer of ``learner`` over ``params`` (default: every
+        parameter the model does not freeze), in the JAX package's update
+        rule: ``adam`` and ``sgd`` add ``weight_decay * p`` to the gradient
+        (not AdamW); ``adagrad`` and ``rmsprop`` keep eps inside the root
+        (``trainer/optim.py``); ``sparse_adam`` is dense Adam without decay;
+        an unknown learner is Adam."""
+        learner = (learner or self.learner).lower()
+        lr = self.learning_rate if learning_rate is None else learning_rate
+        wd = self.weight_decay if weight_decay is None else weight_decay
+
+        if self.config["reg_weight"] and wd and wd * self.config["reg_weight"] > 0:
+            self.logger.warning(
+                "The parameters [weight_decay] and [reg_weight] are specified "
+                "simultaneously, which may lead to double regularization."
+            )
+        if params is None:
+            frozen = set(self.model.frozen_param_keys())
+            params = []
+            for key, p in self._named_top_level_params():
+                if key in frozen:
+                    p.requires_grad_(False)
+                else:
+                    params.append(p)
+
+        def adam(decay):
+            return torch.optim.Adam(
+                params, lr=lr, eps=1e-8, weight_decay=decay,
+                fused=self.device.type == "cuda",
+            )
+
+        if learner == "adam":
+            return adam(wd)
+        if learner == "sgd":
+            return torch.optim.SGD(params, lr=lr, weight_decay=wd)
+        if learner == "adagrad":
+            return Adagrad(params, lr=lr, weight_decay=wd, eps=1e-10)
+        if learner == "rmsprop":
+            return RMSprop(params, lr=lr, weight_decay=wd, eps=1e-8, decay=0.99)
+        if learner == "sparse_adam":
+            if wd > 0:
+                self.logger.warning("Sparse Adam cannot argument received argument [weight_decay]")
+            return adam(0.0)
+        self.logger.warning("Received unrecognized optimizer, set default Adam optimizer")
+        return adam(0.0)
+
+    def _masked_tx(self, group_keys, **kwargs):
+        """Optimizer updating only the parameters under the given top-level
+        names (the adversarial trainers' per-optimizer parameter lists)."""
+        group_keys = set(group_keys)
+        frozen = set(self.model.frozen_param_keys())
+        params = [
+            p for key, p in self._named_top_level_params()
+            if key in group_keys and key not in frozen
+        ]
+        return self._build_optimizer(params=params, **kwargs)
+
+    def _tx_by_tag(self, tag):
+        return self.optimizer
+
+    # ------------------------------------------------------------- training
+
+    def _maybe_enable_device_sampling(self, train_data):
+        """Build the used-pair table on the device for in-step negative
+        sampling when the loader runs in device_neg_sampling mode."""
+        if not getattr(train_data, "device_neg_sampling", False):
+            return
+        if self._device_used_keys is not None:
+            return
+        from ..ops.neg_sampling import build_used_table
+
+        ds = train_data.dataset
+        self._device_used_keys = build_used_table(
+            np.asarray(ds.inter_feat[ds.uid_field]),
+            np.asarray(ds.inter_feat[ds.iid_field]),
+            ds.user_num,
+            ds.item_num,
+            device=self.device,
+        )
+        self.logger.info("on-device negative sampling enabled")
+
+    def _train_batch(self, interaction, fields=None):
+        """Interaction → dict of device tensors, only the columns in
+        ``fields`` (None: all). No padding."""
+        return {
+            key: value.to(self.device, non_blocking=True)
+            for key, value in interaction.interaction.items()
+            if fields is None or key in fields
+        }
+
+    def _inject_negatives(self, batch, loss_name):
+        """Draw one uniform negative per row on the device when device
+        sampling is on and the batch carries none."""
+        model = self.model
+        if (
+            self._device_used_keys is None
+            or loss_name != "calculate_loss"
+            or not hasattr(model, "NEG_ITEM_ID")
+            or model.NEG_ITEM_ID in batch
+        ):
+            return batch
+        from ..ops.neg_sampling import sample_negatives
+
+        batch[model.NEG_ITEM_ID] = sample_negatives(
+            self.generator, batch[model.USER_ID], self._device_used_keys,
+            model.n_items, num_neg=1,
+        )
+        return batch
+
+    def _train_step(self, batch, loss_name, sst_list, optimizer):
+        """One optimizer step on ``batch``; returns the loss (a detached
+        scalar on the device, not read here)."""
+        optimizer.zero_grad(set_to_none=True)
+        batch = self._inject_negatives(batch, loss_name)
+        loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
+        loss.backward()
+        if self.clip_grad_norm:
+            clip_by_global_norm(
+                [p for group in optimizer.param_groups for p in group["params"]],
+                self.clip_grad_norm.get("max_norm", 1.0),
+            )
+        optimizer.step()
+        return loss.detach()
+
+    def _run_epoch(self, train_data, loss_name="calculate_loss", sst_list=None, tx_tag="main"):
+        """One pass over the loader with the given (loss, sst subset,
+        optimizer) selection. Returns the sum of the step losses (one host
+        read), or None for an empty loader."""
+        self._maybe_enable_device_sampling(train_data)
+        optimizer = self._tx_by_tag(tx_tag)
+        fields = self.model.loss_batch_fields(loss_name, sst_list)
+        self.model.train()
+        total_loss = None
+        for interaction in train_data:
+            loss = self._train_step(
+                self._train_batch(interaction, fields), loss_name, sst_list, optimizer
+            )
+            total_loss = loss if total_loss is None else total_loss + loss
+        if total_loss is None:
+            return None
+        total = float(total_loss)  # single sync per epoch
+        self._check_nan(total)
+        return total
+
+    def _train_epoch(self, train_data, epoch_idx, loss_func=None, show_progress=False):
+        return self._run_epoch(train_data, loss_name=loss_func or "calculate_loss")
+
+    def _check_nan(self, loss):
+        if np.isnan(loss):
+            raise ValueError("Training loss is nan")
+
+    def _generate_train_loss_output(self, epoch_idx, s_time, e_time, losses):
+        des = self.config["loss_decimal_place"] or 4
+        output = (
+            set_color(f"epoch {epoch_idx} training", "green")
+            + " ["
+            + set_color("time", "blue")
+            + f": {e_time - s_time:.2f}s, "
+        )
+        if isinstance(losses, tuple):
+            output += ", ".join(
+                set_color(f"train_loss{i + 1}", "blue") + f": {loss:.{des}f}"
+                for i, loss in enumerate(losses)
+            )
+        else:
+            output += set_color("train loss", "blue") + f": {losses:.{des}f}"
+        return output + "]"
+
+    def _add_train_loss_to_tensorboard(self, epoch_idx, losses, tag="Loss/Train"):
+        if isinstance(losses, tuple):
+            for idx, loss in enumerate(losses):
+                self.tensorboard.add_scalar(tag + str(idx), loss, epoch_idx)
+        else:
+            self.tensorboard.add_scalar(tag, losses, epoch_idx)
+
+    def _add_hparam_to_tensorboard(self, best_valid_result):
+        hparam_dict = {
+            "learner": self.config["learner"],
+            "learning_rate": self.config["learning_rate"],
+            "train_batch_size": self.config["train_batch_size"],
+        }
+        for k in list(hparam_dict):
+            if hparam_dict[k] is not None and not isinstance(hparam_dict[k], (bool, str, float, int)):
+                hparam_dict[k] = str(hparam_dict[k])
+        self.tensorboard.add_hparams(hparam_dict, {"hparam/best_valid_result": best_valid_result})
+
+    def _valid_epoch(self, valid_data, show_progress=False):
+        valid_result = self.evaluate(valid_data, load_best_model=False, show_progress=show_progress)
+        valid_score = calculate_valid_score(valid_result, self.valid_metric)
+        return valid_score, valid_result
+
+    def _save_sst_embed(self, data):
+        """Export user embeddings + sensitive attributes for offline
+        attackers. The base trainer names no file for them (nor does the JAX
+        package's); the model families' trainers override this."""
+        raise NotImplementedError(
+            "save_sst_embed: the base Trainer exports no embeddings; PFCNTrainer "
+            "does (filter_mode: none), the FairGo trainers are not ported yet"
+        )
+
+    def _profiled_epoch(self, profile_dir, train_data, epoch_idx, show_progress):
+        """Train one epoch under ``torch.profiler`` and write its Chrome
+        trace into ``profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        ensure_dir(profile_dir)
+        with profile(activities=activities) as prof:
+            train_loss = self._train_epoch(train_data, epoch_idx, show_progress=show_progress)
+        trace = os.path.join(profile_dir, f"train_epoch_{epoch_idx}.json")
+        prof.export_chrome_trace(trace)
+        self.logger.info(f"profiler trace written to {trace}")
+        return train_loss
+
     def fit(self, train_data, valid_data=None, verbose=True, saved=True,
             show_progress=False, callback_fn=None):
-        raise NotImplementedError(
-            "training comes with the next slice of the port; this Trainer evaluates "
-            "(load weights with quick_start.load_data_and_model or "
-            "utils.jax_params.load_jax_params)"
-        )
+        """Train for ``epochs`` epochs, validating every ``eval_step`` and
+        stopping early after ``stopping_step`` validations without a better
+        score; the best model is checkpointed when ``saved``. Returns
+        (best_valid_score, best_valid_result)."""
+        if self.config["device_epoch_shuffle"]:
+            raise NotImplementedError(
+                "device_epoch_shuffle (epochs resident on the device) is not ported; "
+                "see ROADMAP Queue A, resident epochs"
+            )
+        if self.config["save_sst_embed"] and type(self)._save_sst_embed is Trainer._save_sst_embed:
+            self._save_sst_embed(train_data)  # raises before training, not after it
+        if saved and self.start_epoch >= self.epochs:
+            self._save_checkpoint(-1, verbose=verbose)
+
+        self.eval_collector.data_collect(train_data)
+        if self.config["train_neg_sample_args"].get("dynamic", "none") != "none":
+            train_data.get_model(self)
+        self._maybe_enable_device_sampling(train_data)
+        valid_step = 0
+
+        profile_dir = self.config["profile_dir"]
+        for epoch_idx in range(self.start_epoch, self.epochs):
+            training_start_time = time()
+            if profile_dir and epoch_idx == self.start_epoch:
+                train_loss = self._profiled_epoch(
+                    profile_dir, train_data, epoch_idx, show_progress
+                )
+            else:
+                train_loss = self._train_epoch(train_data, epoch_idx, show_progress=show_progress)
+            self.train_loss_dict[epoch_idx] = (
+                sum(train_loss) if isinstance(train_loss, tuple) else train_loss
+            )
+            training_end_time = time()
+            if verbose:
+                self.logger.info(
+                    self._generate_train_loss_output(
+                        epoch_idx, training_start_time, training_end_time, train_loss
+                    )
+                )
+            self._add_train_loss_to_tensorboard(epoch_idx, train_loss)
+            self.wandblogger.log_metrics(
+                {"epoch": epoch_idx, "train_loss": train_loss, "train_step": epoch_idx},
+                head="train",
+            )
+
+            if self.eval_step <= 0 or not valid_data:
+                if saved:
+                    self._save_checkpoint(epoch_idx, verbose=verbose)
+                continue
+            if (epoch_idx + 1) % self.eval_step == 0:
+                valid_start_time = time()
+                valid_score, valid_result = self._valid_epoch(valid_data, show_progress=show_progress)
+                self.best_valid_score, self.cur_step, stop_flag, update_flag = early_stopping(
+                    valid_score,
+                    self.best_valid_score,
+                    self.cur_step,
+                    max_step=self.stopping_step,
+                    bigger=self.valid_metric_bigger,
+                )
+                valid_end_time = time()
+                if verbose:
+                    self.logger.info(
+                        (set_color(f"epoch {epoch_idx} evaluating", "green") + " ["
+                         + set_color("time", "blue") + f": {valid_end_time - valid_start_time:.2f}s, "
+                         + set_color("valid_score", "blue") + f": {valid_score:f}]")
+                    )
+                    self.logger.info(set_color("valid result", "blue") + ": \n" + dict2str(valid_result))
+                self.tensorboard.add_scalar("Valid_score", valid_score, epoch_idx)
+                self.wandblogger.log_metrics(
+                    {**_flatten_result(valid_result), "valid_step": valid_step}, head="valid"
+                )
+
+                if update_flag:
+                    if saved:
+                        self._save_checkpoint(epoch_idx, verbose=verbose)
+                    self.best_valid_result = valid_result
+
+                if callback_fn:
+                    callback_fn(epoch_idx, valid_score)
+
+                if stop_flag:
+                    if verbose:
+                        self.logger.info(
+                            "Finished training, best eval result in epoch %d"
+                            % (epoch_idx - self.cur_step * self.eval_step)
+                        )
+                    break
+                valid_step += 1
+
+        if self.config["save_sst_embed"]:
+            self._save_sst_embed(train_data)
+        self._add_hparam_to_tensorboard(self.best_valid_score)
+        return self.best_valid_score, self.best_valid_result
+
+    def score_batch(self, interaction):
+        """Used by the dataloader's dynamic hard-negative mining."""
+        with torch.no_grad():
+            return self._predict_scores(interaction)
 
     # ------------------------------------------------------------- batching
 
@@ -115,10 +501,27 @@ class Trainer(AbstractTrainer):
             "epoch": epoch,
             "cur_step": self.cur_step,
             "best_valid_score": self.best_valid_score,
-            "params": {k: v.detach().cpu().numpy() for k, v in self.model.state_dict().items()},
+            "params": to_jax_params(self.model),
             "model_state": {},
             "other_parameter": self.model.other_parameter(),
+            "optimizer": self._optimizer_payload(self.optimizer),
         }
+
+    @staticmethod
+    def _optimizer_payload(optimizer):
+        """An optimizer's ``state_dict`` with numpy leaves (the checkpoint
+        holds no torch object, so the JAX package can read it)."""
+        return _tree_map_tensors(
+            lambda t: t.detach().cpu().numpy(), optimizer.state_dict(), torch.Tensor
+        )
+
+    def _load_optimizer_payload(self, optimizer, payload):
+        """Restore ``optimizer`` from a checkpoint's ``optimizer`` entry: the
+        port's own payload, or the JAX package's optax state (Adam only)."""
+        if isinstance(payload, dict) and "param_groups" in payload:
+            optimizer.load_state_dict(_tree_map_tensors(torch.as_tensor, payload, np.ndarray))
+        else:
+            load_jax_opt_state(optimizer, self.model, payload)
 
     def _save_checkpoint(self, epoch, verbose=True, **kwargs):
         saved_model_file = kwargs.pop("saved_model_file", self.saved_model_file)
@@ -128,10 +531,30 @@ class Trainer(AbstractTrainer):
             self.logger.info(set_color("Saving current", "blue") + f": {saved_model_file}")
 
     def _load_params_from_checkpoint(self, checkpoint):
-        from ..utils.jax_params import load_jax_params
-
         load_jax_params(self.model, checkpoint["params"])
         self.model.load_other_parameter(checkpoint.get("other_parameter"))
+
+    def resume_checkpoint(self, resume_file):
+        """Continue a run from a checkpoint written by this package or by the
+        JAX package (whose optimizer state is mapped for Adam, and raises for
+        another learner): epoch, step, best score, parameters, optimizer."""
+        from ..quick_start import load_checkpoint
+
+        resume_file = str(resume_file)
+        self.saved_model_file = resume_file
+        checkpoint = load_checkpoint(resume_file)
+        self.start_epoch = checkpoint["epoch"] + 1
+        self.cur_step = checkpoint["cur_step"]
+        self.best_valid_score = checkpoint["best_valid_score"]
+        if checkpoint["config"]["model"].lower() != self.config["model"].lower():
+            self.logger.warning(
+                "Architecture configuration given in config file is different from "
+                "that of checkpoint. This may yield an exception while state_dict is "
+                "being loaded."
+            )
+        self._load_params_from_checkpoint(checkpoint)
+        self._load_optimizer_payload(self.optimizer, checkpoint["optimizer"])
+        self.logger.info(f"Checkpoint loaded. Resume training from epoch {self.start_epoch}")
 
     # ------------------------------------------------------------ evaluate
 
@@ -367,18 +790,14 @@ class Trainer(AbstractTrainer):
         self._last_eval_path = "fused"
         return self._collect_full_sort_fused(batched_data, sst_list)
 
-    @torch.no_grad()
-    def evaluate(self, eval_data, load_best_model=False, model_file=None, show_progress=False):
-        if not eval_data:
-            return
+    def _load_best(self, model_file=None):
+        from ..quick_start import load_checkpoint
 
-        if load_best_model:
-            checkpoint_file = model_file or self.saved_model_file
-            with open(checkpoint_file, "rb") as f:
-                checkpoint = pickle.load(f)
-            self._load_params_from_checkpoint(checkpoint)
-            self.logger.info(f"Loading model structure and parameters from {checkpoint_file}")
+        checkpoint_file = model_file or self.saved_model_file
+        self._load_params_from_checkpoint(load_checkpoint(checkpoint_file))
+        self.logger.info(f"Loading model structure and parameters from {checkpoint_file}")
 
+    def _prepare_eval(self, eval_data):
         if not isinstance(eval_data, FullSortEvalDataLoader):
             raise NotImplementedError("sampled evaluation is not ported yet")
         self._full_sort_pad = eval_data.step
@@ -386,9 +805,18 @@ class Trainer(AbstractTrainer):
         if self.config["eval_type"] == EvaluatorType.RANKING:
             self.tot_item_num = eval_data.dataset.item_num
 
+    @torch.no_grad()
+    def evaluate(self, eval_data, load_best_model=False, model_file=None, show_progress=False):
+        if not eval_data:
+            return
+        if load_best_model:
+            self._load_best(model_file)
+        self._prepare_eval(eval_data)
         self.model.eval()
         self.eval_collector.model_collect(self.model)
         for batched_data in self._macro_batches(eval_data):
             self._collect_batch(batched_data)
         struct = self.eval_collector.get_data_struct()
-        return self.evaluator.evaluate(struct)
+        result = self.evaluator.evaluate(struct)
+        self.wandblogger.log_eval_metrics(result, head="eval")
+        return result

@@ -8,7 +8,9 @@ from .enums import (
 )
 from .common import (
     _bucket,
+    calculate_valid_score,
     dict2str,
+    early_stopping,
     ensure_dir,
     get_local_time,
     init_seed,
@@ -25,7 +27,9 @@ __all__ = [
     "KGDataLoaderState",
     "ModelType",
     "_bucket",
+    "calculate_valid_score",
     "dict2str",
+    "early_stopping",
     "ensure_dir",
     "get_local_time",
     "init_seed",

@@ -1,4 +1,4 @@
-"""General-purpose helpers: seeding, time/paths, colored text.
+"""General-purpose helpers: seeding, early stopping, time/paths, colored text.
 
 Counterpart of ``recbole_fairrec_tpu/utils/common.py``. Where the JAX package
 mints a ``jax.random.PRNGKey``, ``init_seed`` here returns a seeded
@@ -41,6 +41,55 @@ def get_local_time() -> str:
 
 def ensure_dir(dir_path: str) -> None:
     os.makedirs(dir_path, exist_ok=True)
+
+
+def early_stopping(value, best, cur_step, max_step, bigger=True):
+    """Early-stopping counter update.
+
+    Args:
+        value: current epoch's validation score.
+        best: best score so far.
+        cur_step: epochs since the last improvement.
+        max_step: patience; stop once cur_step exceeds it.
+        bigger: whether larger scores are better.
+
+    Returns:
+        (best, cur_step, stop_flag, update_flag)
+    """
+    stop_flag = False
+    update_flag = False
+    improved = value > best if bigger else value < best
+    if improved:
+        cur_step = 0
+        best = value
+        update_flag = True
+    else:
+        cur_step += 1
+        if cur_step > max_step:
+            stop_flag = True
+    return best, cur_step, stop_flag, update_flag
+
+
+def calculate_valid_score(valid_result, valid_metric=None):
+    """Pull the validation score out of an eval-result dict.
+
+    The configured metric name is lowercased and falls back to ``recall@10``.
+    Nested result dicts (PFCN per-subset results) are searched recursively,
+    taking the first hit.
+    """
+    key = (valid_metric or "recall@10").lower()
+    return _search_metric(valid_result, key)
+
+
+def _search_metric(result, key):
+    for k, v in result.items():
+        if isinstance(v, dict):
+            found = _search_metric(v, key)
+            if found is not None:
+                return found
+        elif str(k).lower() == key:
+            return v
+    return None
 
 
 def dict2str(result_dict) -> str:

@@ -2,10 +2,8 @@
 
 Counterpart of ``recbole_fairrec_tpu/utils/registry.py``: models resolve by
 importing ``models.<name.lower()>`` and fetching the class of that name;
-trainers resolve ``<ModelName>Trainer`` with a fallback to the base
-``Trainer``. The port has no ``PFCNTrainer`` yet, so PFCN_* models get the
-base ``Trainer`` (the JAX package gives them ``PFCNTrainer``); with
-``filter_mode: none`` the two evaluate identically.
+trainers resolve ``<ModelName>Trainer`` (``PFCN_PMFTrainer`` for PFCN_PMF)
+with a fallback to the base ``Trainer``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 pandas, nor PyYAML outside the lazy reader of user config files), runs on
 the card unless the caller asks for the CPU, and ``chip_smoke.py`` refuses
-to run where there is no card or no package beside it.
+to run where there is no card or no package beside it, and refuses a
+trainer that landed on the CPU.
 """
 
 import ast
@@ -17,13 +18,14 @@ from recbole_fairrec_tpu_torch import Config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE_DIR = os.path.join(REPO, "recbole_fairrec_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "pandas", "yaml", "recbole_fairrec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "chex", "pandas", "yaml", "recbole_fairrec_tpu")
 # the one allowed lazy import: PyYAML for user config files
 LAZY_YAML = ("config/configurator.py", "_load_user_yaml")
 
 
 def _port_sources():
-    for dirpath, _, files in os.walk(PACKAGE_DIR):
+    for dirpath, dirnames, files in os.walk(PACKAGE_DIR):
+        dirnames[:] = [d for d in dirnames if d != "_build"]  # build outputs, not sources
         for name in files:
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
@@ -72,37 +74,85 @@ def test_chip_smoke_imports_no_jax():
     with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
         tree = ast.parse(f.read())
     roots = {root for root, _ in _imports_with_scope(tree)}
-    assert not roots & {"jax", "jaxlib", "pandas", "yaml", "recbole_fairrec_tpu"}
+    assert not roots & set(FORBIDDEN)
 
 
-_SERVE_SCRIPT = r"""
+def test_new_training_modules_are_checked():
+    """The modules of the training slice are among the sources the import
+    check walks."""
+    rel = {os.path.relpath(p, PACKAGE_DIR).replace(os.sep, "/") for p in _port_sources()}
+    assert {"ops/neg_sampling.py", "models/losses.py", "utils/loggers.py", "trainer/optim.py",
+            "trainer/adversarial.py", "trainer/trainer.py", "quick_start.py"} <= rel
+
+
+def test_kernel_sweep_imports_no_jax():
+    with open(os.path.join(REPO, "kernel_sweep.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    roots = {root for root, _ in _imports_with_scope(tree)}
+    assert not roots & set(FORBIDDEN)
+
+
+_TRAIN_AND_SERVE_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-import recbole_fairrec_tpu_torch
+from recbole_fairrec_tpu_torch import load_data_and_model, run_recbole
 work = sys.argv[2]
 root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500)
-launches, trainer, test_data = chip_smoke.serve(root, work, {"use_gpu": False})
+cfg = chip_smoke.train_config(root, work, {"use_gpu": False, "train_batch_size": 256})
+result = run_recbole(model="PFCN_PMF", dataset=chip_smoke.DATASET, config_dict=cfg)
+assert list(result["test_result"]) == ["none"], result
+import glob
+ckpt = glob.glob(work + "/saved/PFCN_PMF-*.pth")[0]
+config, model, trainer, _, _, _, test_data = load_data_and_model(ckpt, {"use_gpu": False})
+assert type(trainer).__name__ == "PFCN_PMFTrainer" and str(trainer.device) == "cpu"
+assert trainer.evaluate(test_data) == result["test_result"]
+assert trainer._last_eval_path == "streaming", trainer._last_eval_path
+config["streaming_eval"] = False
+trainer.evaluate(test_data)
 assert trainer._last_eval_path == "fused", trainer._last_eval_path
-assert str(trainer.device) == "cpu"
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "pandas", "yaml", "recbole_fairrec_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                       "recbole_fairrec_tpu"))
 print("LEAKED", leaked)
 """
 
+_SERVE_ON_CPU_SCRIPT = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+work = sys.argv[2]
+root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500)
+chip_smoke.serve(root, work, {"use_gpu": False})
+print("SERVED")
+"""
 
-def test_serving_path_runs_without_jax(tmp_path):
-    """The tiny serving path (chip_smoke's, on the CPU) in a fresh
-    interpreter: afterwards no JAX, JAX-package, pandas or yaml module is
-    loaded."""
-    proc = subprocess.run(
-        [sys.executable, "-c", _SERVE_SCRIPT, REPO, str(tmp_path)],
+
+def _run_script(script, tmp_path):
+    return subprocess.run(
+        [sys.executable, "-c", script, REPO, str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
     )
+
+
+def test_serving_path_runs_without_jax(tmp_path):
+    """The tiny training and serving path (``run_recbole`` with chip_smoke's
+    training settings, then ``load_data_and_model`` and ``evaluate`` on both
+    paths, on the CPU) in a fresh interpreter: afterwards no JAX, optax,
+    JAX-package, pandas or yaml module is loaded."""
+    proc = _run_script(_TRAIN_AND_SERVE_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
-    assert "streaming" in proc.stdout and "dense" in proc.stdout
+
+
+def test_chip_smoke_serve_refuses_a_cpu_trainer(tmp_path):
+    """A configuration that lands on the CPU must not pass the serve phase
+    without the kernel."""
+    proc = _run_script(_SERVE_ON_CPU_SCRIPT, tmp_path)
+    assert proc.returncode != 0
+    assert "SERVED" not in proc.stdout
+    assert "not on the card" in proc.stderr, proc.stderr[-2000:]
 
 
 def test_config_without_cuda_raises(monkeypatch, tiny_data_path):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the training
+step's device code (negative sampling, one optimizer step) against the CPU,
+on the card.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is
 present. The file imports neither JAX nor the JAX package, so on a machine
@@ -7,10 +9,14 @@ with a card and without JAX it runs with the repository's conftest left out:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from recbole_fairrec_tpu_torch.ops import fused_topk
+from recbole_fairrec_tpu_torch import Config
+from recbole_fairrec_tpu_torch.models.pfcn_pmf import PFCN_PMF
+from recbole_fairrec_tpu_torch.ops import fused_topk, neg_sampling
+from recbole_fairrec_tpu_torch.trainer import PFCN_PMFTrainer
 
 
 @pytest.fixture()
@@ -78,3 +84,99 @@ def test_fused_topk_rejects_non_float32_on_card(card):
     T = torch.zeros(10, 8, device=card, dtype=torch.float64)
     with pytest.raises(TypeError):
         fused_topk.fused_topk_scores(U, T, 3)
+
+
+# ------------------------------------------------- negative sampling, on card
+
+N_USERS, N_ITEMS = 500, 3630
+
+
+def _used_pairs(seed=3, n=60_000):
+    r = np.random.RandomState(seed)
+    keys = np.unique(r.randint(1, N_USERS, n).astype(np.int64) * N_ITEMS
+                     + r.randint(1, N_ITEMS, n))
+    return keys // N_ITEMS, keys % N_ITEMS, keys
+
+
+def _used_table(kind, u, i, device):
+    if kind == "bitmap":
+        return neg_sampling.build_used_bitmap(u, i, N_USERS, N_ITEMS, device=device)
+    return neg_sampling.build_used_keys(u, i, N_ITEMS, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bitmap", "keys"])
+@pytest.mark.parametrize("num_neg", [1, 3])
+def test_sample_negatives_on_card(card, kind, num_neg):
+    u, i, keys = _used_pairs()
+    used = _used_table(kind, u, i, card)
+    users = torch.from_numpy(np.random.RandomState(5).randint(1, N_USERS, 2048)).to(card)
+    gen = torch.Generator(device=card).manual_seed(7)
+    out = neg_sampling.sample_negatives(gen, users, used, N_ITEMS, num_neg=num_neg)
+    assert out.device.type == "cuda" and out.shape == (2048 * num_neg,)
+    assert int(out.min()) >= 1 and int(out.max()) < N_ITEMS
+    drawn = users.repeat(num_neg).cpu().numpy() * N_ITEMS + out.cpu().numpy()
+    assert not np.isin(drawn, keys).any()
+    again = neg_sampling.sample_negatives(
+        torch.Generator(device=card).manual_seed(7), users, used, N_ITEMS, num_neg=num_neg)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+def test_sample_negatives_refuses_a_cpu_generator_on_card(card):
+    u, i, _ = _used_pairs()
+    used = _used_table("bitmap", u, i, card)
+    users = torch.ones(16, dtype=torch.int64, device=card)
+    with pytest.raises(RuntimeError):
+        neg_sampling.sample_negatives(torch.Generator().manual_seed(0), users, used, N_ITEMS)
+
+
+# ------------------------------------------------------ one train step, on card
+
+
+class _Sizes:
+    """The two numbers a PFCN_PMF reads from its dataset."""
+
+    def num(self, field):
+        return {"user_id": N_USERS, "item_id": N_ITEMS}[field]
+
+
+def _trainer(tmp_path, use_gpu, learner, state):
+    config = Config(model="PFCN_PMF", dataset="none", config_dict={
+        "use_gpu": use_gpu, "filter_mode": "none", "sst_attr_list": [], "embedding_size": 64,
+        "learner": learner, "weight_decay": 0.01, "clip_grad_norm": {"max_norm": 0.5},
+        "learning_rate": 0.01, "metrics": ["NDCG"], "topk": [10], "valid_metric": "NDCG@10",
+        "checkpoint_dir": str(tmp_path / "saved"), "state": "ERROR",
+    })
+    model = PFCN_PMF(config, _Sizes())
+    model.load_state_dict(state)
+    return PFCN_PMFTrainer(config, model)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("learner", ["adam", "sgd", "adagrad", "rmsprop", "sparse_adam"])
+def test_train_steps_on_card_match_cpu(card, tmp_path, learner, monkeypatch):
+    """Two steps from the same weights, batches and negatives: parameters
+    within 1e-5 (abs) and losses within 1e-6 (rel) of the CPU's."""
+    monkeypatch.chdir(tmp_path)  # the scalar log lands beside the test's files
+    gen = torch.Generator().manual_seed(0)
+    state = {"user_embedding.weight": torch.randn(N_USERS, 64, generator=gen) * 0.3,
+             "item_embedding.weight": torch.randn(N_ITEMS, 64, generator=gen) * 0.3}
+    on_card = _trainer(tmp_path, True, learner, state)
+    on_cpu = _trainer(tmp_path, False, learner, state)
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    for _ in range(2):
+        batch = {
+            "user_id": torch.randint(1, N_USERS, (2048,), generator=gen),
+            "item_id": torch.randint(1, N_ITEMS, (2048,), generator=gen),
+            "neg_item_id": torch.randint(1, N_ITEMS, (2048,), generator=gen),
+        }
+        losses = []
+        for trainer in (on_card, on_cpu):
+            trainer.model.train()
+            moved = {k: v.to(trainer.device) for k, v in batch.items()}
+            losses.append(float(trainer._train_step(moved, "calculate_loss", None,
+                                                    trainer.optimizer)))
+        assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+    for p, q in zip(on_card.model.parameters(), on_cpu.model.parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= 1e-5

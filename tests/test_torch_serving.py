@@ -1,6 +1,9 @@
 """The serving slice as a whole: full-sort evaluation of BPR-MF (PFCN_PMF,
 ``filter_mode: none``, ``embedding_size: 64``) in the port against the JAX
-package's base ``Trainer.evaluate``.
+package's ``Trainer.evaluate``: the base ``Trainer`` (as ``bench.py`` builds
+it) and the ``PFCNTrainer`` that both registries give PFCN_PMF, whose
+``evaluate`` loads the best checkpoint by default and returns the result
+nested under ``"none"``.
 
 Both sides read the same data; the port runs on the CPU (``use_gpu: False``)
 with the JAX parameters carried over by ``load_jax_params`` or read from a
@@ -26,12 +29,13 @@ from recbole_fairrec_tpu.data import create_dataset as jax_create_dataset
 from recbole_fairrec_tpu.data import data_preparation as jax_data_preparation
 from recbole_fairrec_tpu.trainer import Trainer as JaxTrainer
 from recbole_fairrec_tpu.utils import get_model as jax_get_model
+from recbole_fairrec_tpu.utils import get_trainer as jax_get_trainer
 from recbole_fairrec_tpu.utils import init_seed as jax_init_seed
 
 from recbole_fairrec_tpu_torch import Config, load_data_and_model
 from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
 from recbole_fairrec_tpu_torch.ops import fused_topk
-from recbole_fairrec_tpu_torch.trainer import Trainer
+from recbole_fairrec_tpu_torch.trainer import PFCN_PMFTrainer, Trainer
 from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
 from recbole_fairrec_tpu_torch.utils.jax_params import load_jax_params
 from torch_jax_native_cache import private_jax_native_cache  # noqa: F401 (autouse fixture)
@@ -67,6 +71,14 @@ class _Side:
         self.config["streaming_eval"] = streaming
         return dict(self.trainer.evaluate(self.loaders[split]))
 
+    def registry_trainer(self, get_trainer_fn):
+        """The trainer the package's registry gives PFCN_PMF (a
+        ``PFCNTrainer``), over this side's model and loaders."""
+        trainer = get_trainer_fn(self.config["MODEL_TYPE"], "PFCN_PMF")(
+            self.config, self.trainer.model)
+        trainer.eval_collector.data_collect(self.loaders[0])
+        return trainer
+
 
 def _build_jax(cfg, dataset):
     config = JaxConfig(model="PFCN_PMF", dataset=dataset, config_dict=cfg)
@@ -86,7 +98,7 @@ def _build_torch(cfg, dataset, params):
     loaders = data_preparation(config, ds)
     model = get_model("PFCN_PMF")(config, loaders[0].dataset, generator=generator)
     load_jax_params(model, params)
-    trainer = get_trainer(config["MODEL_TYPE"], "PFCN_PMF")(config, model)
+    trainer = Trainer(config, model)  # the base Trainer on this side too
     trainer.eval_collector.data_collect(loaders[0])
     return _Side(config, trainer, loaders)
 
@@ -130,6 +142,32 @@ def test_evaluate_matches_jax(sides, streaming, split):
     assert all(np.isfinite(v) for v in ours.values())
 
 
+@pytest.mark.parametrize("split", [1, 2], ids=["valid", "test"])
+@pytest.mark.parametrize("streaming", [False, True], ids=["dense", "streaming"])
+def test_registry_trainer_evaluate_matches_jax(sides, streaming, split):
+    """Through ``get_trainer`` both packages give PFCN_PMF a ``PFCNTrainer``:
+    ``evaluate`` reads the best checkpoint by default and nests the result
+    under ``"none"``."""
+    jax_side, torch_side, root = sides
+    ckpt = str(root / "registry-best.pth")
+    jax_side.trainer._save_checkpoint(0, verbose=False, saved_model_file=ckpt)
+    ref_trainer = jax_side.registry_trainer(jax_get_trainer)
+    trainer = torch_side.registry_trainer(get_trainer)
+    assert type(ref_trainer).__name__ == type(trainer).__name__ == "PFCN_PMFTrainer"
+    assert isinstance(trainer, PFCN_PMFTrainer)
+    # other weights in memory than in the checkpoint: the default must reload
+    load_jax_params(trainer.model, {k: np.zeros_like(v) for k, v in _jax_params(jax_side).items()})
+    ref_trainer.saved_model_file = trainer.saved_model_file = ckpt
+    jax_side.config["streaming_eval"] = torch_side.config["streaming_eval"] = streaming
+    ours = trainer.evaluate(torch_side.loaders[split])
+    ref = ref_trainer.evaluate(jax_side.loaders[split])
+    assert list(ours) == list(ref) == ["none"]
+    assert dict(ours["none"]) == dict(ref["none"])
+    flat = jax_side.evaluate(split, streaming)  # the base Trainer's flat dict
+    assert dict(ours["none"]) == flat
+    assert dict(trainer.evaluate(torch_side.loaders[split], load_best_model=False)["none"]) == flat
+
+
 def test_streaming_equals_dense_on_exact_weights(sides):
     jax_side, torch_side, _ = sides
     params = _jax_params(jax_side)
@@ -154,13 +192,14 @@ def test_load_data_and_model_reads_jax_checkpoint(sides):
     config, model, trainer, _, _, valid_data, test_data = load_data_and_model(
         ckpt, config_dict={"use_gpu": False, "log_root": str(root / "log")}
     )
-    assert isinstance(trainer, Trainer) and str(config["device"]) == "cpu"
+    assert isinstance(trainer, PFCN_PMFTrainer) and str(config["device"]) == "cpu"
     for name, value in _jax_params(jax_side).items():
         np.testing.assert_array_equal(getattr(model, name).weight.detach().numpy(), value)
     for streaming in (False, True):
         config["streaming_eval"] = streaming
-        ours = dict(trainer.evaluate(test_data))
-        assert ours == jax_side.evaluate(2, streaming)
+        ours = trainer.evaluate(test_data)  # reloads the JAX-written checkpoint
+        assert list(ours) == ["none"]
+        assert dict(ours["none"]) == jax_side.evaluate(2, streaming)
     assert fused_topk.launches == before  # CPU tensors take the plain version
 
 
@@ -173,7 +212,7 @@ def test_port_checkpoint_round_trip(sides):
         ckpt, config_dict={"use_gpu": False, "streaming_eval": True,
                            "log_root": str(root / "log")}
     )
-    assert dict(trainer.evaluate(test_data)) == expected
+    assert dict(trainer.evaluate(test_data)["none"]) == expected
 
 
 def test_load_jax_params_rejects_mismatch(sides):
