@@ -7,9 +7,11 @@ Builds the port's hand-written kernels from the sources in this checkout,
 serves full-sort evaluation of BPR-MF (PFCN_PMF, ``filter_mode: none``,
 ``embedding_size: 64``) at ml-1M scale through the serving entry points
 (``load_data_and_model`` then ``evaluate``), trains the same model on the
-same data through ``run_recbole``, checks that both paths went through the
-kernels, and holds every kernel against its plain PyTorch version at the
-shapes the serving path gives it. Imports nothing of JAX.
+same data through ``run_recbole``, trains the adversarial PFCN family
+(filters, discriminators and their alternation) through ``run_recbole``,
+checks that every path went through the kernels, and holds every kernel
+against its plain PyTorch version at the shapes the paths give it. Imports
+nothing of JAX.
 
 Phases, each of which exits non-zero when it fails:
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
@@ -27,8 +29,23 @@ Phases, each of which exits non-zero when it fails:
      the card are unused pairs and uniform; one step on the card equals one
      on the CPU; seconds per epoch and per validation and the split of one
      step are printed;
-  5. kernels: each kernel against its plain version on the inputs the
-     serving path gave it, on gaussian inputs of the same shapes (at the
+  5. adversarial: the same interactions with ml-1M's age and occupation
+     codes added per user (a separate numpy seed); run_recbole of PFCN_PMF
+     at its published widths with filter_mode sm over gender, age and
+     occupation (7 filters, 3 discriminators), 3 epochs (epoch 0 filter +
+     discriminator, epochs 1-2 discriminator only), streaming validation of
+     all 7 subsets after each; launch counts set to 0 before and read after
+     (one launch per subset per macro batch of every validation and of the
+     test); the checkpoint read back gives the same 7 dicts; one filter step
+     and one discriminator step on the card equal the CPU's, BatchNorm
+     statistics included; then 1-epoch runs of PFCN_BiasedMF (cm, d + 1 =
+     65 through the kernel), PFCN_DMF (sm, unit vectors through the kernel)
+     and PFCN_MLP (sm, the dense path); seconds per epoch kind, per
+     validation and per test, and the split of a filter and a discriminator
+     step are printed;
+  6. kernels: each kernel against its plain version on the inputs the
+     serving path gave it, on the filtered, d 65 and unit-vector inputs of
+     the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
      (4096, over 16,384 items), on a tie-heavy integer input and at d 30,
      with times, the bound and the library yardstick.
@@ -57,6 +74,13 @@ PACKAGE = "recbole_fairrec_tpu_torch"
 # ml-1M scale, as bench.py synthesises it (bench.py:44-71)
 N_USERS, N_ITEMS, N_INTER = 6040, 3629, 836478
 DATASET = "ml1m-smoke"
+ADV_DATASET = "ml1m-smoke-adv"
+ADV_ATTRS = ["gender", "age", "occupation"]
+ML1M_AGE_CODES = (1, 18, 25, 35, 45, 50, 56)  # ml-1M's users.dat age groups
+ML1M_OCCUPATIONS = 21  # ml-1M's occupation codes 0-20
+# the largest |m_hat / sqrt(v_hat)| of one Adam step (beta1 0.9, beta2 0.999),
+# reached when the step's gradient dwarfs the moments' history
+ADAM_STEP_BOUND = (1 - 0.9) / math.sqrt(1 - 0.999)
 TOPK = 10
 TRAIN_EPOCHS = 3
 SPLIT_STEPS = 60  # steps over which one train step is split into its parts
@@ -82,9 +106,12 @@ def fail(msg):
 
 
 def write_dataset(root, n_users=N_USERS, n_items=N_ITEMS, n_inter=N_INTER, seed=2020,
-                  name=DATASET):
+                  name=DATASET, attributes=False):
     """bench.py's synthetic recipe, written with numpy alone: unique random
-    (user, item) pairs with ratings 1-5, and a binary gender per user."""
+    (user, item) pairs with ratings 1-5, and a binary gender per user. With
+    ``attributes`` each user also gets an ml-1M age code and occupation code,
+    drawn from a generator of their own, so the interactions and genders are
+    those of the plain dataset."""
     ddir = os.path.join(root, name)
     os.makedirs(ddir, exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -101,9 +128,15 @@ def write_dataset(root, n_users=N_USERS, n_items=N_ITEMS, n_inter=N_INTER, seed=
         delimiter="\t", header="user_id:token\titem_id:token\trating:float", comments="",
     )
     users = np.arange(1, n_users + 1)
+    columns, header = [users, users % 2], "user_id:token\tgender:float"
+    if attributes:
+        attr_rng = np.random.RandomState(seed + 1)
+        columns += [np.asarray(ML1M_AGE_CODES)[attr_rng.randint(0, len(ML1M_AGE_CODES), n_users)],
+                    attr_rng.randint(0, ML1M_OCCUPATIONS, n_users)]
+        header += "\tage:token\toccupation:token"
     np.savetxt(
-        os.path.join(ddir, f"{name}.user"), np.stack([users, users % 2], axis=1), fmt="%d",
-        delimiter="\t", header="user_id:token\tgender:float", comments="",
+        os.path.join(ddir, f"{name}.user"), np.stack(columns, axis=1), fmt="%d",
+        delimiter="\t", header=header, comments="",
     )
     return root
 
@@ -229,15 +262,20 @@ def serve(data_root, work_dir, extra_cfg=None):
 
 @contextlib.contextmanager
 def _timed_fit(modules):
-    """While installed, every trained epoch and every validation of the
-    port's trainers is timed (host clock, the card synchronised before and
-    after) and the kernels' launch counts are read around each validation.
-    Yields the record; the trainers' methods are put back on exit."""
+    """While installed, every pass over the train loader (with its optimizer
+    tag and attribute subset), every trained epoch, every validation and every final ``evaluate`` of the port's
+    trainers is timed (host clock, the card synchronised before and after)
+    and the kernels' launch counts are read around each validation and each
+    ``evaluate``. Yields the record; the trainers' methods are put back on
+    exit."""
     from recbole_fairrec_tpu_torch.trainer import PFCNTrainer, Trainer
 
     record = {"trainers": [], "epoch_s": [], "examples": [], "valid_s": [],
-              "valid_results": [], "valid_launches": [], "valid_paths": []}
+              "valid_results": [], "valid_launches": [], "valid_paths": [],
+              "train_epoch_s": [], "train_epoch_losses": [], "test_s": [], "test_launches": [],
+              "test_paths": [], "passes": []}
     run_epoch, valid_epoch = Trainer._run_epoch, PFCNTrainer._valid_epoch
+    train_epoch, evaluate = PFCNTrainer._train_epoch, PFCNTrainer.evaluate
 
     def timed_run_epoch(self, train_data, *args, **kwargs):
         if not any(self is t for t in record["trainers"]):
@@ -248,6 +286,8 @@ def _timed_fit(modules):
         _sync()
         record["epoch_s"].append(time.perf_counter() - t0)
         record["examples"].append(len(train_data.dataset))
+        if len(args) == 3:  # (loss name, attribute subset, optimizer tag)
+            record["passes"].append([args[2], list(args[1] or [])])
         return out
 
     def timed_valid_epoch(self, *args, **kwargs):
@@ -263,11 +303,34 @@ def _timed_fit(modules):
         record["valid_paths"].append(self._last_eval_path)
         return score, result
 
+    def timed_train_epoch(self, *args, **kwargs):
+        _sync()
+        t0 = time.perf_counter()
+        out = train_epoch(self, *args, **kwargs)
+        _sync()
+        record["train_epoch_s"].append(time.perf_counter() - t0)
+        record["train_epoch_losses"].append(out)
+        return out
+
+    def timed_evaluate(self, *args, **kwargs):
+        before = {name: mod.launches for name, mod in modules.items()}
+        _sync()
+        t0 = time.perf_counter()
+        out = evaluate(self, *args, **kwargs)
+        _sync()
+        record["test_s"].append(time.perf_counter() - t0)
+        record["test_launches"].append(
+            {name: mod.launches - before[name] for name, mod in modules.items()})
+        record["test_paths"].append(self._last_eval_path)
+        return out
+
     Trainer._run_epoch, PFCNTrainer._valid_epoch = timed_run_epoch, timed_valid_epoch
+    PFCNTrainer._train_epoch, PFCNTrainer.evaluate = timed_train_epoch, timed_evaluate
     try:
         yield record
     finally:
         Trainer._run_epoch, PFCNTrainer._valid_epoch = run_epoch, valid_epoch
+        PFCNTrainer._train_epoch, PFCNTrainer.evaluate = train_epoch, evaluate
 
 
 def _check_metrics(label, result):
@@ -352,6 +415,383 @@ def train(data_root, work_dir, card, extra_cfg=None):
     check_step_card_against_cpu(trainer2, train2, cfg, trainer.saved_model_file)
     time_step_split(trainer2, train2, card)
     return launches
+
+
+def adversarial_config(data_root, work_dir, extra=None):
+    """The training phase's settings on the dataset with attributes, with
+    ``filter_mode: sm`` over gender, age and occupation; every other width
+    and setting (embedding 64, discriminators [128, 256, 128, 128, 64, 32],
+    leaky ReLU, dis_dropout 0.3, dis_weight 10, weight_decay 1e-4,
+    train_epoch_interval 5 for PFCN_PMF) is the model's published one from
+    its properties."""
+    return train_config(data_root, work_dir, {
+        "load_col": {"inter": ["user_id", "item_id", "rating"], "user": ["user_id", *ADV_ATTRS]},
+        "filter_mode": "sm",
+        "sst_attr_list": list(ADV_ATTRS),
+        **(extra or {}),
+    })
+
+
+def _subset_keys(mode, attrs):
+    import itertools
+
+    return [f"{mode}-{list(c)}" for i in range(1, len(attrs) + 1)
+            for c in itertools.combinations(attrs, i)]
+
+
+def _adversarial_run(data_root, work_dir, model, extra, expected_path):
+    """One ``run_recbole`` of an adversarial model with the launch counts
+    set to 0 just before and read just after. Checks the trainer, the epoch
+    losses, the paths and launch counts of every validation and of the test
+    and the result's keys; returns (result, record, launches, trainer)."""
+    from recbole_fairrec_tpu_torch import run_recbole
+
+    cfg = adversarial_config(data_root, work_dir, extra)
+    modules = {k["name"]: _kernel_module(k) for k in KERNELS}
+    for mod in modules.values():
+        mod.launches = 0
+    with _timed_fit(modules) as rec:
+        t0 = time.perf_counter()
+        result = run_recbole(model=model, dataset=ADV_DATASET, config_dict=cfg)
+        _sync()
+        rec["run_recbole_s"] = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in modules.items()}
+    label = f"adversarial {model}"
+    if len(rec["trainers"]) != 1:
+        fail(f"{label}: run_recbole trained {len(rec['trainers'])} trainers, expected 1")
+    trainer = rec["trainers"][0]
+    _require_card_trainer(trainer, label, model)
+    epochs, interval = trainer.epochs, trainer.train_epoch_interval
+    losses = rec["train_epoch_losses"]
+    if len(losses) != epochs:
+        fail(f"{label}: {len(losses)} epochs trained, expected {epochs}")
+    for epoch, pair in enumerate(losses):
+        if not (isinstance(pair, tuple) and len(pair) == 2
+                and all(math.isfinite(x) for x in pair)):
+            fail(f"{label}: epoch {epoch} losses {pair}: not a finite (filter, dis) pair")
+        if (pair[0] != 0.0) != (epoch % interval == 0) or pair[1] == 0.0:
+            fail(f"{label}: epoch {epoch} losses {pair}: a pass ran or was skipped wrongly")
+    keys = _subset_keys(cfg["filter_mode"], cfg["sst_attr_list"])
+    if list(result["test_result"]) != keys:
+        fail(f"{label}: test_result keys {list(result['test_result'])}, expected {keys}")
+    for key, res in result["test_result"].items():
+        _check_metrics(f"{label}: test {key}", res)
+    if len(rec["valid_s"]) != epochs or len(rec["test_s"]) != 1:
+        fail(f"{label}: {len(rec['valid_s'])} validations and {len(rec['test_s'])} tests")
+    for epoch, (res, path) in enumerate(zip(rec["valid_results"], rec["valid_paths"])):
+        _check_metrics(f"{label}: validation {epoch}", res)
+        if path != expected_path:
+            fail(f"{label}: validation {epoch} took the path {path!r}, not {expected_path!r}")
+    if rec["test_paths"][0] != expected_path:
+        fail(f"{label}: the test took the path {rec['test_paths'][0]!r}")
+    if result["best_valid_result"] not in rec["valid_results"]:
+        fail(f"{label}: best_valid_result is none of the validations' results")
+    rec["subsets"] = len(keys)
+    return result, rec, launches, trainer
+
+
+def _check_launches(label, rec, launches, n_macro_valid, n_macro_test):
+    """``fused_topk`` once per subset per macro batch of every validation
+    and of the test, and nowhere else."""
+    for epoch, n in enumerate(rec["valid_launches"]):
+        if n["fused_topk"] != rec["subsets"] * n_macro_valid:
+            fail(f"{label}: validation {epoch} launched fused_topk {n['fused_topk']} times, "
+                 f"expected {rec['subsets']} subsets x {n_macro_valid} macro batches")
+    if rec["test_launches"][0]["fused_topk"] != rec["subsets"] * n_macro_test:
+        fail(f"{label}: the test launched fused_topk {rec['test_launches'][0]['fused_topk']} "
+             f"times, expected {rec['subsets']} x {n_macro_test}")
+    in_evals = sum(n["fused_topk"] for n in rec["valid_launches"] + rec["test_launches"])
+    if launches["fused_topk"] != in_evals:
+        fail(f"{label}: fused_topk launched {launches['fused_topk']} times, "
+             f"{in_evals} of them in evaluations")
+
+
+def _read_back(trainer, cfg, result, label, model):
+    """The checkpoint ``fit`` saved, through ``load_data_and_model`` then
+    ``evaluate``: the same dict per subset. Returns the serving trainer and
+    its loaders."""
+    from recbole_fairrec_tpu_torch import load_data_and_model
+
+    _, _, trainer2, _, train2, valid2, test2 = load_data_and_model(
+        trainer.saved_model_file, config_dict={"log_root": cfg["log_root"]})
+    _require_card_trainer(trainer2, f"{label} read-back", model)
+    back = trainer2.evaluate(test2)
+    if {k: dict(v) for k, v in back.items()} != \
+            {k: dict(v) for k, v in result["test_result"].items()}:
+        fail(f"{label}: the checkpoint read back gives {back}, run_recbole gave "
+             f"{result['test_result']}")
+    return trainer2, train2, valid2, test2
+
+
+def _n_macro(trainer, loader):
+    return sum(1 for _ in trainer._macro_batches(loader))
+
+
+def adversarial(data_root, work_dir, card):
+    """Phase 5: the adversarial main path (PFCN_PMF, sm over three
+    attributes, 3 epochs) and the short runs of the other backbones. Returns
+    the launch counts by run and the kernel's rows on the new inputs."""
+    cfg = adversarial_config(data_root, work_dir)
+    result, rec, launches, trainer = _adversarial_run(
+        data_root, work_dir, "PFCN_PMF", None, "streaming-kernel")
+    trainer2, train2, valid2, test2 = _read_back(trainer, cfg, result, "adversarial", "PFCN_PMF")
+    _check_launches("adversarial", rec, launches, _n_macro(trainer2, valid2),
+                    _n_macro(trainer2, test2))
+    print("adversarial: the checkpoint read back gives the same 7 dicts", flush=True)
+    epochs = rec["train_epoch_s"]
+    row = {
+        "run_recbole_s": rec["run_recbole_s"], "examples_per_epoch": rec["examples"][0],
+        "filter_and_dis_epoch_s": [t for t, l in zip(epochs, rec["train_epoch_losses"]) if l[0]],
+        "dis_only_epoch_s": [t for t, l in zip(epochs, rec["train_epoch_losses"]) if not l[0]],
+        "validation_s": rec["valid_s"], "subsets_per_validation": rec["subsets"],
+        "test_s": rec["test_s"][0], "epoch_losses": rec["train_epoch_losses"],
+        "passes": rec["passes"], "launches": launches, "config": {k: trainer.config[k] for k in (
+            "embedding_size", "dis_hidden_size_list", "activation", "dis_dropout",
+            "dis_weight", "weight_decay", "train_epoch_interval", "filter_mode",
+            "sst_attr_list")},
+        "card": card,
+    }
+    print(f"adversarial: epochs {json.dumps(row)}", flush=True)
+    print(f"adversarial: best valid {result['best_valid_result']}; test {result['test_result']}",
+          flush=True)
+
+    check_adversarial_steps(trainer2, train2, cfg, trainer.saved_model_file)
+    mod = _kernel_module(KERNELS[0])
+    U, T, k = serving_inputs(trainer2, test2, tuple(ADV_ATTRS))
+    rows = [check_fused_topk(mod, U, T, k, "filtered-pmf", card)]
+    time_adversarial_step_split(trainer2, train2, card)
+
+    runs = {"adversarial": launches["fused_topk"]}
+    for model, extra, path, label in (
+            ("PFCN_BiasedMF", {"filter_mode": "cm", "sst_attr_list": ["gender"]},
+             "streaming-kernel", "biasedmf-d65"),
+            ("PFCN_DMF", {"filter_mode": "sm", "sst_attr_list": ["gender", "age"]},
+             "streaming-kernel", "dmf-unit"),
+            ("PFCN_MLP", {"filter_mode": "sm", "sst_attr_list": ["gender"]}, "fused", None)):
+        short_cfg = adversarial_config(data_root, work_dir, {**extra, "epochs": 1})
+        res, srec, slaunches, strainer = _adversarial_run(
+            data_root, work_dir, model, {**extra, "epochs": 1}, path)
+        t2, _, v2, te2 = _read_back(strainer, short_cfg, res, f"adversarial {model}", model)
+        if label is None:
+            if slaunches["fused_topk"]:
+                fail(f"adversarial {model}: the dense path launched fused_topk")
+        else:
+            _check_launches(f"adversarial {model}", srec, slaunches, _n_macro(t2, v2),
+                            _n_macro(t2, te2))
+            U, T, k = serving_inputs(t2, te2, tuple(extra["sst_attr_list"]))
+            rows.append(check_fused_topk(mod, U, T, k, label, card))
+        runs[model] = slaunches["fused_topk"]
+        print(f"adversarial: {model} {extra['filter_mode']} {extra['sst_attr_list']}, 1 epoch: "
+              f"run_recbole {srec['run_recbole_s']:.3f} s, epoch "
+              f"{srec['train_epoch_s'][0]:.3f} s, validation {srec['valid_s'][0]:.3f} s, test "
+              f"{srec['test_s'][0]:.3f} s, path {path}, fused_topk launches "
+              f"{slaunches['fused_topk']}; test {res['test_result']}; {card}", flush=True)
+    return runs, rows
+
+
+def _step_capturing_grads(trainer, batch, loss_name, sst, tag):
+    """``trainer._train_step`` with the optimizer of ``tag``; returns the
+    loss and the gradients the optimizer stepped with (on the host)."""
+    optimizer = trainer._tx_by_tag(tag)
+    grads = {}
+    step = optimizer.step
+
+    def capture(*args, **kwargs):
+        for name, p in trainer.model.named_parameters():
+            if p.grad is not None:
+                grads[name] = p.grad.detach().cpu().clone()
+        return step(*args, **kwargs)
+
+    optimizer.step = capture
+    try:
+        loss = float(trainer._train_step(batch, loss_name, sst, optimizer))
+    finally:
+        del optimizer.step
+    return loss, grads
+
+
+def _pre_bn_bias(name):
+    """A linear bias of a filter or discriminator: it feeds a BatchNorm, so
+    its gradient is analytically 0 and what a device computes is rounding."""
+    parts = name.split(".")
+    return parts[0] in ("filters", "discriminators") and parts[-3] == "linear" \
+        and parts[-1] == "b"
+
+
+def _float64_grads(model, state, batch, loss_name, sst):
+    """The loss and gradients of ``loss_name`` computed in float64 on the CPU
+    from ``state`` (float32 tensors); ``model`` is left in float32."""
+    model.double().load_state_dict(state)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = getattr(model, loss_name)(dict(batch), sst_list=sst)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.float()
+    return float(loss.detach()), grads
+
+
+def check_adversarial_steps(trainer, train_data, cfg, ckpt, atol=1e-5, loss_rtol=1e-6,
+                            grad_factor=4.0, grad_floor=1e-6, max_unheld=0.25):
+    """One filter step and one discriminator step over the three attributes
+    on the card and on the CPU, on the same batch and negatives, dropout 0,
+    from two starting points: the model's seeded initialisation (fresh
+    optimizers) and the best checkpoint (its weights, BatchNorm statistics
+    and optimizer states). The float64 gradient on the CPU is the reference.
+
+    Limits:
+    * losses within ``loss_rtol`` (rel); BatchNorm running statistics within
+      ``atol`` (abs);
+    * gradients, per tensor the optimizer steps: the card's largest distance
+      from the float64 gradient at most ``grad_factor`` times the CPU's
+      float32 one plus ``grad_floor`` of the tensor's largest float64
+      gradient (the "error bound");
+    * parameters within ``atol`` (abs), except the elements whose gradient
+      float32 does not resolve: the biases that feed a BatchNorm (gradient
+      analytically 0) and the elements the loss reaches (a nonzero gradient
+      in float64 or on the CPU) whose float64 gradient is within the error
+      bound. Adam steps those by up to ``ADAM_STEP_BOUND`` learning rates
+      either way on each device, so they are held within twice that +
+      ``atol``. From the initialisation at most ``max_unheld`` of the reached
+      elements may be such; from the checkpoint the filters and
+      discriminators that the drawn subsets left to weight decay alone have
+      collapsed, and nearly all of theirs are (PERF.md, PR 4)."""
+    import torch
+
+    from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.utils import get_model
+
+    dataset = train_data.dataset
+    trainers = []
+    for use_gpu in (True, False):
+        config = Config(model="PFCN_PMF", dataset=ADV_DATASET,
+                        config_dict={**cfg, "use_gpu": use_gpu, "dis_dropout": 0.0})
+        trainers.append(type(trainer)(config, get_model("PFCN_PMF")(config, dataset)))
+    card, cpu = trainers
+    if card.device.type != "cuda" or cpu.device.type != "cpu":
+        fail(f"adversarial step: trainers on {card.device} and {cpu.device}")
+    model64 = get_model("PFCN_PMF")(cpu.config, dataset)
+    init_state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    sst = tuple(ADV_ATTRS)
+    card._maybe_enable_device_sampling(train_data)
+    interaction = next(iter(train_data))
+    train_data.pr = 0
+    fields = card.model.loss_batch_fields("calculate_loss", sst)
+    batch = card._inject_negatives(card._train_batch(interaction, fields), "calculate_loss")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    noise_atol = 2 * ADAM_STEP_BOUND * cpu.config["learning_rate"] + atol
+    buffers = {name for name, _ in cpu.model.named_buffers()}
+    for start in ("initialisation", "checkpoint"):
+        for loss_name, tag in (("calculate_loss", "filter"), ("calculate_dis_loss", "dis")):
+            for t in trainers:
+                if start == "initialisation":
+                    t.model.load_state_dict(init_state)
+                else:
+                    t.resume_checkpoint(ckpt)
+                t.model.train()
+            loss64, g64 = _float64_grads(model64, cpu.model.state_dict(), cpu_batch, loss_name,
+                                         sst)
+            loss, grads = _step_capturing_grads(card, dict(batch), loss_name, sst, tag)
+            cpu_loss, cpu_grads = _step_capturing_grads(cpu, dict(cpu_batch), loss_name, sst,
+                                                        tag)
+            stepped = {id(p) for group in cpu._tx_by_tag(tag).param_groups
+                       for p in group["params"]}
+            stepped = {name for name, p in cpu.model.named_parameters() if id(p) in stepped}
+            cpu_state = cpu.model.state_dict()
+            gaps = dict.fromkeys(("parameters", "bn_statistics", "unheld"), 0.0)
+            grad_use, held, n_reached, modules = 0.0, 0, 0, {}
+            for name, value in card.model.state_dict().items():
+                gap = (value.detach().cpu() - cpu_state[name]).abs()
+                if name in buffers:
+                    gaps["bn_statistics"] = max(gaps["bn_statistics"], float(gap.max()))
+                    continue
+                unheld = torch.zeros(gap.shape, dtype=torch.bool)
+                if name in stepped:
+                    ref = g64.get(name, torch.zeros(value.shape, dtype=torch.float64))
+                    scale = float(ref.abs().max())
+                    cpu_err = float((cpu_grads[name].double() - ref).abs().max())
+                    card_err = float((grads[name].double() - ref).abs().max())
+                    bound = grad_factor * cpu_err + grad_floor * scale
+                    grad_use = max(grad_use, card_err / bound if bound else float(card_err > 0))
+                    if _pre_bn_bias(name):
+                        unheld[...] = True
+                    else:
+                        # reached: a nonzero gradient in float64 or on the CPU
+                        reached = (ref != 0) | (cpu_grads[name] != 0)
+                        unheld = reached & (ref.abs() <= bound)
+                        n_reached += int(reached.sum())
+                        if unheld.any():
+                            module = ".".join(name.split(".")[:2])
+                            entry = modules.setdefault(module, {"unheld": 0, "of": 0, "error": 0.0})
+                            entry["unheld"] += int(unheld.sum())
+                            entry["of"] += int(reached.sum())
+                            entry["error"] = max(entry["error"], float(f"{cpu_err / scale:.3g}"))
+                held += int((~unheld).sum())
+                gaps["parameters"] = max(gaps["parameters"], float(gap.where(~unheld, 0.0).max()))
+                gaps["unheld"] = max(gaps["unheld"], float(gap.where(unheld, 0.0).max()))
+            n_unheld = sum(m["unheld"] for m in modules.values())
+            for module, entry in modules.items():
+                weights = [v.double().flatten() for k, v in cpu_state.items()
+                           if k.startswith(module + ".") and k.endswith(".w")]
+                entry["weight_rms"] = float(torch.cat(weights).pow(2).mean().sqrt()) \
+                    if weights else None
+            label = f"adversarial step from the {start}, {tag}"
+            print(f"{label}: card loss {loss!r}, CPU loss {cpu_loss!r}, float64 {loss64!r}; "
+                  f"largest gaps {json.dumps(gaps)}; card gradient error at most {grad_use:.3f} of "
+                  f"its bound; {held} parameter elements held at {atol}; {n_unheld} of the "
+                  f"{n_reached} that the loss reaches are within the error bound (by "
+                  f"module, with the CPU's largest error over the largest float64 gradient and "
+                  f"the RMS of the module's linear weights: {json.dumps(modules)})", flush=True)
+            if not math.isfinite(loss) or abs(loss - cpu_loss) > loss_rtol * abs(cpu_loss):
+                fail(f"{label}: the card's loss {loss} and the CPU's {cpu_loss} differ")
+            if grad_use > 1.0:
+                fail(f"{label}: the card's gradient error is {grad_use:.3f} times its bound")
+            if gaps["parameters"] > atol or gaps["bn_statistics"] > atol \
+                    or gaps["unheld"] > noise_atol:
+                fail(f"{label}: card and CPU differ by {gaps}")
+            if start == "initialisation" and n_unheld > max_unheld * n_reached:
+                fail(f"{label}: {n_unheld} of {n_reached} elements are within the error bound, "
+                     f"more than {max_unheld} of them")
+
+
+def time_adversarial_step_split(trainer, train_data, card, steps=SPLIT_STEPS):
+    """A filter step and a discriminator step over the three attributes,
+    each over ``steps`` steps of the real loader: the wall time per step
+    (host clock, the card synchronised at the end), the host's time in the
+    loader, the copy and ``_train_step`` (which returns before the card
+    finishes), and the card's busy time per step from the profiler on one
+    batch."""
+    model = trainer.model
+    sst = tuple(ADV_ATTRS)
+    trainer._maybe_enable_device_sampling(train_data)
+    row = {"steps": steps, "sst_list": list(sst), "card": card}
+    model.train()
+    for loss_name, tag in (("calculate_loss", "filter"), ("calculate_dis_loss", "dis")):
+        optimizer = trainer._tx_by_tag(tag)
+        fields = model.loss_batch_fields(loss_name, sst)
+        it = iter(train_data)
+        for _ in range(5):  # warm-up
+            trainer._train_step(trainer._train_batch(next(it), fields), loss_name, sst, optimizer)
+        _sync()
+        host = 0.0
+        t_start = time.perf_counter()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            batch = trainer._train_batch(next(it), fields)
+            loss = trainer._train_step(batch, loss_name, sst, optimizer)
+            host += time.perf_counter() - t0
+        _sync()
+        wall_ms = (time.perf_counter() - t_start) / steps * 1e3
+        train_data.pr = 0
+        if not math.isfinite(float(loss)):
+            fail(f"adversarial step split: the {tag} loss is not finite")
+        raw = {k: v for k, v in batch.items() if k != model.NEG_ITEM_ID}
+        busy = _device_busy_ms(lambda: trainer._train_step(dict(raw), loss_name, sst, optimizer))
+        row[tag] = {"batch": int(batch[model.USER_ID].shape[0]), "wall_ms_per_step": wall_ms,
+                    "host_ms_per_step": host / steps * 1e3, "device_busy_ms_per_step": busy,
+                    "device_idle_share": 1.0 - busy / wall_ms}
+    print(f"adversarial: step split {json.dumps(row)}", flush=True)
 
 
 def check_negatives(trainer, train_data, card):
@@ -538,13 +978,14 @@ def time_step_split(trainer, train_data, card, steps=SPLIT_STEPS):
     print(f"train: step split {json.dumps(row)}", flush=True)
 
 
-def _require_card_trainer(trainer, phase):
-    """The registry's trainer for PFCN_PMF, on the card: a configuration that
-    lands on the CPU would pass every later check without a kernel."""
-    from recbole_fairrec_tpu_torch.trainer import PFCN_PMFTrainer
+def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
+    """The registry's trainer for ``model``, on the card: a configuration
+    that lands on the CPU would pass every later check without a kernel."""
+    import importlib
 
-    if not isinstance(trainer, PFCN_PMFTrainer):
-        fail(f"{phase}: the trainer is a {type(trainer).__name__}, not a PFCN_PMFTrainer")
+    cls = getattr(importlib.import_module(f"{PACKAGE}.trainer"), f"{model}Trainer")
+    if not isinstance(trainer, cls):
+        fail(f"{phase}: the trainer is a {type(trainer).__name__}, not a {cls.__name__}")
     if trainer.device.type != "cuda":
         fail(f"{phase}: the trainer is on {trainer.device}, not on the card")
     if next(trainer.model.parameters()).device.type != "cuda":
@@ -563,9 +1004,10 @@ def _kernel_module(kernel):
     return importlib.import_module(f"{PACKAGE}.{kernel['module']}")
 
 
-def serving_inputs(trainer, loader):
+def serving_inputs(trainer, loader, sst_list=None):
     """The fused top-k's inputs exactly as the streaming path builds them for
-    the first macro-batch of ``loader`` (after an ``evaluate`` of it)."""
+    the first macro-batch of ``loader`` (after an ``evaluate`` of it), for
+    the attribute subset ``sst_list`` of a filtered model."""
     import torch
 
     from recbole_fairrec_tpu_torch.utils import _bucket
@@ -574,7 +1016,7 @@ def serving_inputs(trainer, loader):
     n = len(interaction)
     pad_to = max(trainer._full_sort_pad or n, _bucket(n, 512))
     with torch.no_grad():
-        U, T = trainer._get_retrieval_fn()(trainer._to_batch(interaction, pad_to=pad_to))
+        U, T = trainer._get_retrieval_fn(sst_list)(trainer._to_batch(interaction, pad_to=pad_to))
     return U.detach().contiguous(), T.detach().contiguous(), trainer._stream_kprime
 
 
@@ -723,11 +1165,18 @@ def main():
     # phase 4: the training main path
     train_launches = train(data_root, work, card)
 
-    # phase 5: every kernel against its plain version
+    # phase 5: the adversarial main path and the other backbones
+    adv_work = os.path.join(work, "adversarial")
+    t0 = time.perf_counter()
+    write_dataset(data_root, name=ADV_DATASET, attributes=True)
+    print(f"adversarial: wrote the dataset in {time.perf_counter() - t0:.3f} s", flush=True)
+    adv_launches, adv_rows = adversarial(data_root, adv_work, card)
+
+    # phase 6: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     U, T, k_prime = serving_inputs(trainer, test_data)
     gen = torch.Generator().manual_seed(2020)
-    rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)]
+    rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)] + adv_rows
     Ug = torch.randn(U.shape, generator=gen).cuda()
     Tg = torch.randn(T.shape, generator=gen).cuda()
     rows.append(check_fused_topk(mod, Ug, Tg, k_prime, "gaussian", card))
@@ -746,8 +1195,9 @@ def main():
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
-        "launches": launches[k["name"]] + train_launches[k["name"]],
-        "launches_by_path": {"serve": launches[k["name"]], "train": train_launches[k["name"]]},
+        "launches": launches[k["name"]] + train_launches[k["name"]] + sum(adv_launches.values()),
+        "launches_by_path": {"serve": launches[k["name"]], "train": train_launches[k["name"]],
+                             **adv_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

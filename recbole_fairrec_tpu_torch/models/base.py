@@ -23,18 +23,18 @@ from torch import nn
 from ..utils import InputType, ModelType, set_color
 
 
-def batch_weights(batch, like):
-    """Per-row validity weights: the batch's ``__weight__`` column (1.0 for
-    real rows, 0.0 for padding rows) or all ones shaped like ``like``."""
+def batch_weights(batch):
+    """The batch's ``__weight__`` validity column (1.0 for real rows, 0.0
+    for padding rows), or None for a batch without padding."""
     w = batch.get("__weight__")
-    if w is None:
-        return torch.ones_like(like, dtype=torch.float32)
-    return w.float()
+    return None if w is None else w.float()
 
 
 def wmean(values, weights):
-    """Weighted mean that reduces exactly to ``.mean()`` when all weights
-    are 1."""
+    """Mean of ``values`` weighted by ``weights``; the plain mean when
+    ``weights`` is None."""
+    if weights is None:
+        return values.mean()
     return torch.sum(values * weights) / torch.sum(weights).clamp_min(1.0)
 
 

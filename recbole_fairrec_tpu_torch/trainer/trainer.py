@@ -5,9 +5,11 @@ zoo, the train step and the epoch loop (``fit``), checkpoints and resume,
 and full-sort evaluation (batch padding, eval macro-batching, the dense and
 streaming paths, ``evaluate``).
 
-Training. One step is ``zero_grad`` → device negatives when the loader runs
-in ``device_neg_sampling`` mode → the model's loss → ``backward`` → gradient
-clipping → the optimizer's step. Every learner follows the JAX package's
+Training. One step is ``zero_grad`` of the whole model → device negatives
+when the loader runs in ``device_neg_sampling`` mode → the model's loss →
+``backward`` → a zero gradient for each of the optimizer's parameters that
+the loss did not reach → gradient clipping over the optimizer's parameters →
+the optimizer's step. Every learner follows the JAX package's
 update rule (its optax chain), not PyTorch's default where the two differ;
 see ``_build_optimizer`` and ``trainer/optim.py``. Train batches are not
 padded and carry no ``__weight__``: static shapes are XLA's need, and the
@@ -53,7 +55,12 @@ from ..utils import (
     get_local_time,
     set_color,
 )
-from ..utils.jax_params import load_jax_opt_state, load_jax_params, to_jax_params
+from ..utils.jax_params import (
+    load_jax_opt_state,
+    load_jax_params,
+    to_jax_params,
+    to_jax_state,
+)
 from ..utils.loggers import WandbLogger, get_tensorboard
 from .optim import Adagrad, RMSprop, clip_by_global_norm
 
@@ -262,16 +269,28 @@ class Trainer(AbstractTrainer):
 
     def _train_step(self, batch, loss_name, sst_list, optimizer):
         """One optimizer step on ``batch``; returns the loss (a detached
-        scalar on the device, not read here)."""
-        optimizer.zero_grad(set_to_none=True)
+        scalar on the device, not read here).
+
+        The gradients of the whole model are zeroed first: a loss may reach
+        parameters outside ``optimizer`` (the filter step's loss reaches the
+        discriminators), which another optimizer steps later. A parameter of
+        ``optimizer`` that the loss does not reach (a filter of another
+        subset) gets a zero gradient, so its update rule still runs — moments
+        decay, weight decay applies, the step count advances — as the JAX
+        package's masked optax chain does."""
+        self.model.zero_grad(set_to_none=True)
         batch = self._inject_negatives(batch, loss_name)
         loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
         loss.backward()
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        missing = [p for p in params if p.grad is None]
+        if missing:  # views of one zero buffer: one allocation, not one per parameter
+            flat = torch.zeros(sum(p.numel() for p in missing), dtype=missing[0].dtype,
+                               device=missing[0].device)
+            for p, g in zip(missing, flat.split([p.numel() for p in missing])):
+                p.grad = g.view_as(p)
         if self.clip_grad_norm:
-            clip_by_global_norm(
-                [p for group in optimizer.param_groups for p in group["params"]],
-                self.clip_grad_norm.get("max_norm", 1.0),
-            )
+            clip_by_global_norm(params, self.clip_grad_norm.get("max_norm", 1.0))
         optimizer.step()
         return loss.detach()
 
@@ -502,7 +521,7 @@ class Trainer(AbstractTrainer):
             "cur_step": self.cur_step,
             "best_valid_score": self.best_valid_score,
             "params": to_jax_params(self.model),
-            "model_state": {},
+            "model_state": to_jax_state(self.model),
             "other_parameter": self.model.other_parameter(),
             "optimizer": self._optimizer_payload(self.optimizer),
         }
@@ -531,13 +550,14 @@ class Trainer(AbstractTrainer):
             self.logger.info(set_color("Saving current", "blue") + f": {saved_model_file}")
 
     def _load_params_from_checkpoint(self, checkpoint):
-        load_jax_params(self.model, checkpoint["params"])
+        load_jax_params(self.model, checkpoint["params"], checkpoint.get("model_state"))
         self.model.load_other_parameter(checkpoint.get("other_parameter"))
 
     def resume_checkpoint(self, resume_file):
         """Continue a run from a checkpoint written by this package or by the
         JAX package (whose optimizer state is mapped for Adam, and raises for
-        another learner): epoch, step, best score, parameters, optimizer."""
+        another learner): epoch, step, best score, parameters and BatchNorm
+        statistics, optimizers."""
         from ..quick_start import load_checkpoint
 
         resume_file = str(resume_file)
@@ -553,8 +573,11 @@ class Trainer(AbstractTrainer):
                 "being loaded."
             )
         self._load_params_from_checkpoint(checkpoint)
-        self._load_optimizer_payload(self.optimizer, checkpoint["optimizer"])
+        self._load_optimizers(checkpoint)
         self.logger.info(f"Checkpoint loaded. Resume training from epoch {self.start_epoch}")
+
+    def _load_optimizers(self, checkpoint):
+        self._load_optimizer_payload(self.optimizer, checkpoint["optimizer"])
 
     # ------------------------------------------------------------ evaluate
 

@@ -78,11 +78,13 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_new_training_modules_are_checked():
-    """The modules of the training slice are among the sources the import
-    check walks."""
+    """The modules of the training and adversarial slices are among the
+    sources the import check walks."""
     rel = {os.path.relpath(p, PACKAGE_DIR).replace(os.sep, "/") for p in _port_sources()}
     assert {"ops/neg_sampling.py", "models/losses.py", "utils/loggers.py", "trainer/optim.py",
-            "trainer/adversarial.py", "trainer/trainer.py", "quick_start.py"} <= rel
+            "trainer/adversarial.py", "trainer/trainer.py", "quick_start.py",
+            "models/layers.py", "models/pfcn_base.py", "models/pfcn_mlp.py",
+            "models/pfcn_dmf.py", "models/pfcn_biasedmf.py", "utils/jax_params.py"} <= rel
 
 
 def test_kernel_sweep_imports_no_jax():
@@ -117,6 +119,32 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_ADVERSARIAL_SCRIPT = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from recbole_fairrec_tpu_torch import load_data_and_model, run_recbole
+work = sys.argv[2]
+root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500,
+                                name=chip_smoke.ADV_DATASET, attributes=True)
+for model in ("PFCN_PMF", "PFCN_MLP", "PFCN_DMF", "PFCN_BiasedMF"):
+    cfg = chip_smoke.adversarial_config(root, work + "/" + model, {
+        "use_gpu": False, "train_batch_size": 256, "epochs": 2, "train_epoch_interval": 2,
+        "save_sst_embed": False})
+    result = run_recbole(model=model, dataset=chip_smoke.ADV_DATASET, config_dict=cfg)
+    keys = chip_smoke._subset_keys("sm", chip_smoke.ADV_ATTRS)
+    assert list(result["test_result"]) == keys, result["test_result"]
+    import glob
+    ckpt = glob.glob(work + "/" + model + "/saved/" + model + "-*.pth")[0]
+    _, _, trainer, _, _, _, test_data = load_data_and_model(ckpt, {"use_gpu": False})
+    assert type(trainer).__name__ == model + "Trainer" and str(trainer.device) == "cpu"
+    assert trainer.evaluate(test_data) == result["test_result"]
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                       "recbole_fairrec_tpu"))
+print("LEAKED", leaked)
+"""
+
 _SERVE_ON_CPU_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -142,6 +170,17 @@ def test_serving_path_runs_without_jax(tmp_path):
     paths, on the CPU) in a fresh interpreter: afterwards no JAX, optax,
     JAX-package, pandas or yaml module is loaded."""
     proc = _run_script(_TRAIN_AND_SERVE_SCRIPT, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_adversarial_path_runs_without_jax(tmp_path):
+    """The four adversarial backbones (``filter_mode: sm`` over gender, age
+    and occupation, chip_smoke's settings at a tiny size) through
+    ``run_recbole`` and back through ``load_data_and_model`` on the CPU, in
+    a fresh interpreter: afterwards no JAX, optax, JAX-package, pandas or
+    yaml module is loaded."""
+    proc = _run_script(_ADVERSARIAL_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
 

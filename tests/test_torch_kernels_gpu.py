@@ -180,3 +180,115 @@ def test_train_steps_on_card_match_cpu(card, tmp_path, learner, monkeypatch):
         assert losses[0] == pytest.approx(losses[1], rel=1e-6)
     for p, q in zip(on_card.model.parameters(), on_cpu.model.parameters()):
         assert float((p.detach().cpu() - q.detach()).abs().max()) <= 1e-5
+
+
+# ------------------------------------------- the adversarial PFCN path, on card
+
+
+class _AttrSizes(_Sizes):
+    """Sizes plus a user table with a binary ``gender`` and a seven-valued
+    ``age`` (row 0 is PAD)."""
+
+    def get_user_feature(self):
+        users = np.arange(N_USERS)
+        return {"gender": users % 2, "age": users % 7}
+
+
+def _adv_config(tmp_path, use_gpu, model, mode, attrs):
+    return Config(model=model, dataset="none", config_dict={
+        "use_gpu": use_gpu, "filter_mode": mode, "sst_attr_list": attrs, "embedding_size": 64,
+        "dis_hidden_size_list": [128, 256, 128, 128, 64, 32], "dis_dropout": 0.0,
+        "mlp_dropout": 0.0, "learner": "adam", "learning_rate": 0.001, "weight_decay": 1e-4,
+        "metrics": ["NDCG"], "topk": [10], "valid_metric": "NDCG@10",
+        "checkpoint_dir": str(tmp_path / "saved"), "state": "ERROR",
+    })
+
+
+def _pre_bn_bias(name):
+    parts = name.split(".")
+    return parts[0] in ("filters", "discriminators") and parts[-3:-2] == ["linear"] \
+        and parts[-1] == "b"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_name,tag", [("calculate_loss", "filter"),
+                                           ("calculate_dis_loss", "dis")])
+def test_adversarial_steps_on_card_match_cpu(card, tmp_path, loss_name, tag, monkeypatch):
+    """PFCN_PMF, sm over gender and age, full widths: one filter step and
+    one dis step from the same weights and batch. Losses within 1e-6 (rel);
+    parameters and BatchNorm running statistics within 1e-5 (abs). A bias
+    that feeds a BatchNorm has a zero gradient, whose float32 noise Adam
+    turns into a step of up to (1 - b1) / sqrt(1 - b2) = 3.16 lr of either
+    sign: within twice that + 1e-5."""
+    monkeypatch.chdir(tmp_path)
+    from recbole_fairrec_tpu_torch.models.pfcn_pmf import PFCN_PMF
+    from recbole_fairrec_tpu_torch.trainer import PFCN_PMFTrainer as Cls
+
+    attrs = ["gender", "age"]
+    state = PFCN_PMF(_adv_config(tmp_path, False, "PFCN_PMF", "sm", attrs), _AttrSizes(),
+                     generator=torch.Generator().manual_seed(0)).state_dict()
+    trainers = []
+    for use_gpu in (True, False):
+        config = _adv_config(tmp_path, use_gpu, "PFCN_PMF", "sm", attrs)
+        model = PFCN_PMF(config, _AttrSizes())
+        model.load_state_dict(state)
+        trainers.append(Cls(config, model))
+    gen = torch.Generator().manual_seed(1)
+    users = torch.randint(1, N_USERS, (2048,), generator=gen)
+    batch = {"user_id": users, "item_id": torch.randint(1, N_ITEMS, (2048,), generator=gen),
+             "neg_item_id": torch.randint(1, N_ITEMS, (2048,), generator=gen),
+             "gender": users % 2, "age": users % 7}
+    losses = []
+    for trainer in trainers:
+        trainer.model.train()
+        moved = {k: v.to(trainer.device) for k, v in batch.items()}
+        losses.append(float(trainer._train_step(moved, loss_name, tuple(attrs),
+                                                trainer._tx_by_tag(tag))))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+    cpu_state = trainers[1].model.state_dict()
+    for name, value in trainers[0].model.state_dict().items():
+        limit = 2 * 3.1623 * 0.001 + 1e-5 if _pre_bn_bias(name) else 1e-5
+        assert float((value.cpu() - cpu_state[name]).abs().max()) <= limit, name
+
+
+def _near_tie_equal(U, T, k):
+    """The kernel against its plain version on float inputs: scores within
+    rtol 1e-5 plus twice the float32 bound of a length-d dot product in any
+    order; indices equal except where the plain version's neighbours lie
+    within that bound of each other."""
+    before = fused_topk.launches
+    s, i = fused_topk.fused_topk_scores(U, T, k)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    s_ref, i_ref = fused_topk.fused_topk_scores_reference(U, T, k)
+    tol = 2 * U.shape[1] * 2.0 ** -24 * torch.gather(U.abs() @ T.abs().T, 1, i_ref.long())
+    assert bool(((s - s_ref).abs() <= 1e-5 * s_ref.abs() + tol).all())
+    gap = (s_ref[:, 1:] - s_ref[:, :-1]).abs() <= torch.maximum(1e-6 * s_ref[:, 1:].abs(),
+                                                                tol[:, 1:])
+    near = torch.zeros_like(gap[:, :1]).expand(-1, k).clone()
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    assert not bool(((i != i_ref) & ~near).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_name,mode,attrs,width", [
+    ("PFCN_PMF", "sm", ["gender", "age"], 64),   # filtered user representations
+    ("PFCN_BiasedMF", "cm", ["gender"], 65),     # user ++ [1] . item ++ [b_i]: d 65
+    ("PFCN_DMF", "sm", ["gender"], 64),          # unit vectors
+])
+def test_fused_topk_on_filtered_retrieval_inputs(card, tmp_path, model_name, mode, attrs, width,
+                                                 monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    from recbole_fairrec_tpu_torch.utils import get_model
+
+    config = _adv_config(tmp_path, True, model_name, mode, attrs)
+    model = get_model(model_name)(config, _AttrSizes()).to(card).eval()
+    users = torch.arange(1, N_USERS, device=card)
+    with torch.no_grad():
+        U, T = model.retrieval_embeddings({"user_id": users}, tuple(attrs))
+    U, T = U.contiguous(), T.contiguous()
+    assert U.shape == (N_USERS - 1, width) and T.shape == (N_ITEMS, width)
+    if model_name == "PFCN_DMF":
+        torch.testing.assert_close(U.norm(dim=1), torch.ones(N_USERS - 1, device=card))
+    _near_tie_equal(U, T, 173)

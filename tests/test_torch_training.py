@@ -574,10 +574,6 @@ def test_uncovered_settings_raise(tiny_env, tiny_data_path, tmp_path):
     with pytest.raises(NotImplementedError, match="multihost"):
         port_pkg.run_recbole("PFCN_PMF", "tiny",
                              config_dict={**cfg, "use_gpu": False, "multihost": True})
-    for mode in ("cm", "sm"):
-        with pytest.raises(NotImplementedError, match="filter_mode"):
-            port_pkg.run_recbole("PFCN_PMF", "tiny",
-                                 config_dict={**cfg, "use_gpu": False, "filter_mode": mode})
 
 
 def test_profile_dir_writes_a_trace(tiny_env, tmp_path):
