@@ -263,74 +263,117 @@ def serve(data_root, work_dir, extra_cfg=None):
 @contextlib.contextmanager
 def _timed_fit(modules):
     """While installed, every pass over the train loader (with its optimizer
-    tag and attribute subset), every trained epoch, every validation and every final ``evaluate`` of the port's
-    trainers is timed (host clock, the card synchronised before and after)
-    and the kernels' launch counts are read around each validation and each
-    ``evaluate``. Yields the record; the trainers' methods are put back on
-    exit."""
+    tag and attribute subset), every trained epoch, every validation and
+    every final ``evaluate`` of the port's trainers (the base ``Trainer``'s
+    and ``PFCNTrainer``'s) is timed (host clock, the card synchronised before
+    and after) and the kernels' launch counts are read around each
+    validation and each ``evaluate``. Each validation and ``evaluate`` also
+    records its split: the host's time in the sampled loader (the negative
+    draws and the batch assembly), the time in the sampled device path
+    (synchronised) and its number of calls, and the loader batches. Yields
+    the record; the methods are put back on exit."""
+    from recbole_fairrec_tpu_torch.data import NegSampleEvalDataLoader
     from recbole_fairrec_tpu_torch.trainer import PFCNTrainer, Trainer
 
     record = {"trainers": [], "epoch_s": [], "examples": [], "valid_s": [],
-              "valid_results": [], "valid_launches": [], "valid_paths": [],
+              "valid_results": [], "valid_launches": [], "valid_paths": [], "valid_split": [],
               "train_epoch_s": [], "train_epoch_losses": [], "test_s": [], "test_launches": [],
-              "test_paths": [], "passes": []}
-    run_epoch, valid_epoch = Trainer._run_epoch, PFCNTrainer._valid_epoch
-    train_epoch, evaluate = PFCNTrainer._train_epoch, PFCNTrainer.evaluate
+              "test_paths": [], "test_split": [], "passes": []}
+    counters = {"draws_s": 0.0, "device_s": 0.0, "sampled_calls": 0, "batches": 0}
+    in_valid = []
+    originals = {}
 
-    def timed_run_epoch(self, train_data, *args, **kwargs):
-        if not any(self is t for t in record["trainers"]):
-            record["trainers"].append(self)
-        _sync()
-        t0 = time.perf_counter()
-        out = run_epoch(self, train_data, *args, **kwargs)
-        _sync()
-        record["epoch_s"].append(time.perf_counter() - t0)
-        record["examples"].append(len(train_data.dataset))
-        if len(args) == 3:  # (loss name, attribute subset, optimizer tag)
-            record["passes"].append([args[2], list(args[1] or [])])
-        return out
+    def patch(cls, name, wrap):
+        originals[(cls, name)] = cls.__dict__[name]
+        setattr(cls, name, wrap(originals[(cls, name)]))
 
-    def timed_valid_epoch(self, *args, **kwargs):
-        before = {name: mod.launches for name, mod in modules.items()}
-        _sync()
-        t0 = time.perf_counter()
-        score, result = valid_epoch(self, *args, **kwargs)
-        _sync()
-        record["valid_s"].append(time.perf_counter() - t0)
-        record["valid_results"].append(dict(result))
-        record["valid_launches"].append(
-            {name: mod.launches - before[name] for name, mod in modules.items()})
-        record["valid_paths"].append(self._last_eval_path)
-        return score, result
+    def timed_run_epoch(run_epoch):
+        def run(self, train_data, *args, **kwargs):
+            if not any(self is t for t in record["trainers"]):
+                record["trainers"].append(self)
+            _sync()
+            t0 = time.perf_counter()
+            out = run_epoch(self, train_data, *args, **kwargs)
+            _sync()
+            record["epoch_s"].append(time.perf_counter() - t0)
+            record["examples"].append(len(train_data.dataset))
+            if len(args) == 3:  # (loss name, attribute subset, optimizer tag)
+                record["passes"].append([args[2], list(args[1] or [])])
+            return out
+        return run
 
-    def timed_train_epoch(self, *args, **kwargs):
-        _sync()
-        t0 = time.perf_counter()
-        out = train_epoch(self, *args, **kwargs)
-        _sync()
-        record["train_epoch_s"].append(time.perf_counter() - t0)
-        record["train_epoch_losses"].append(out)
-        return out
+    def timed_eval(kind):
+        def wrap(fn):
+            def run(self, *args, **kwargs):
+                if in_valid:  # the base Trainer's validation calls evaluate
+                    return fn(self, *args, **kwargs)
+                before = {name: mod.launches for name, mod in modules.items()}
+                split0 = dict(counters)
+                if kind == "valid":
+                    in_valid.append(True)
+                _sync()
+                t0 = time.perf_counter()
+                try:
+                    out = fn(self, *args, **kwargs)
+                finally:
+                    if kind == "valid":
+                        in_valid.pop()
+                _sync()
+                record[f"{kind}_s"].append(time.perf_counter() - t0)
+                if kind == "valid":
+                    record["valid_results"].append(dict(out[1]))
+                record[f"{kind}_launches"].append(
+                    {name: mod.launches - before[name] for name, mod in modules.items()})
+                record[f"{kind}_paths"].append(self._last_eval_path)
+                record[f"{kind}_split"].append(
+                    {key: counters[key] - split0[key] for key in counters})
+                return out
+            return run
+        return wrap
 
-    def timed_evaluate(self, *args, **kwargs):
-        before = {name: mod.launches for name, mod in modules.items()}
-        _sync()
-        t0 = time.perf_counter()
-        out = evaluate(self, *args, **kwargs)
-        _sync()
-        record["test_s"].append(time.perf_counter() - t0)
-        record["test_launches"].append(
-            {name: mod.launches - before[name] for name, mod in modules.items()})
-        record["test_paths"].append(self._last_eval_path)
-        return out
+    def timed_train_epoch(train_epoch):
+        def run(self, *args, **kwargs):
+            _sync()
+            t0 = time.perf_counter()
+            out = train_epoch(self, *args, **kwargs)
+            _sync()
+            record["train_epoch_s"].append(time.perf_counter() - t0)
+            record["train_epoch_losses"].append(out)
+            return out
+        return run
 
-    Trainer._run_epoch, PFCNTrainer._valid_epoch = timed_run_epoch, timed_valid_epoch
-    PFCNTrainer._train_epoch, PFCNTrainer.evaluate = timed_train_epoch, timed_evaluate
+    def timed_draws(next_batch):
+        def run(self):
+            t0 = time.perf_counter()
+            out = next_batch(self)
+            counters["draws_s"] += time.perf_counter() - t0
+            counters["batches"] += 1
+            return out
+        return run
+
+    def timed_sampled(collect):
+        def run(self, *args, **kwargs):
+            _sync()
+            t0 = time.perf_counter()
+            out = collect(self, *args, **kwargs)
+            _sync()
+            counters["device_s"] += time.perf_counter() - t0
+            counters["sampled_calls"] += 1
+            return out
+        return run
+
+    patch(Trainer, "_run_epoch", timed_run_epoch)
+    patch(Trainer, "_collect_sampled_fused", timed_sampled)
+    patch(NegSampleEvalDataLoader, "_next_batch_data", timed_draws)
+    for cls in (Trainer, PFCNTrainer):
+        patch(cls, "_valid_epoch", timed_eval("valid"))
+        patch(cls, "evaluate", timed_eval("test"))
+        patch(cls, "_train_epoch", timed_train_epoch)
     try:
         yield record
     finally:
-        Trainer._run_epoch, PFCNTrainer._valid_epoch = run_epoch, valid_epoch
-        PFCNTrainer._train_epoch, PFCNTrainer.evaluate = train_epoch, evaluate
+        for (cls, name), fn in originals.items():
+            setattr(cls, name, fn)
 
 
 def _check_metrics(label, result):
@@ -524,7 +567,7 @@ def _read_back(trainer, cfg, result, label, model):
 
 
 def _n_macro(trainer, loader):
-    return sum(1 for _ in trainer._macro_batches(loader))
+    return sum(1 for _ in trainer._macro_batches(loader, "full"))
 
 
 def adversarial(data_root, work_dir, card):
@@ -587,6 +630,385 @@ def adversarial(data_root, work_dir, card):
               f"{srec['test_s'][0]:.3f} s, path {path}, fused_topk launches "
               f"{slaunches['fused_topk']}; test {res['test_result']}; {card}", flush=True)
     return runs, rows
+
+
+# ------------------------------------------------------- the published protocol
+
+PUBLISHED_ATTRS = ["gender", "age"]
+# what every fair model's YAML sets for its evaluation protocol
+PROTOCOL_KEYS = ("eval_args", "metrics", "topk", "valid_metric", "LABEL_FIELD", "threshold")
+# the 12 metric families of the protocol, by the prefix of their result
+# keys; the per-attribute ones carry one key per sensitive attribute
+METRIC_FAMILIES = ("ndcg@", "recall@", "hit@", "mrr@", "Differential Fairness", "giniindex@",
+                   "popularitypercentage@", "Value Unfairness", "Absolute Unfairness",
+                   "Underestimation Unfairness", "Overestimation Unfairness",
+                   "NonParity Unfairness")
+PER_ATTRIBUTE = ("Differential Fairness", "NonParity Unfairness")
+# metrics that only count ranks; the others average scores
+RANK_METRICS = ("ndcg@", "recall@", "hit@", "mrr@", "giniindex@", "popularitypercentage@",
+                "gauc")
+VALUE_RTOL, VALUE_ATOL = 1e-5, 1e-7
+
+
+def published_yaml(model):
+    """The model's published YAML, as the port carries it."""
+    with open(os.path.join(REPO, PACKAGE, "config", "properties.json"), encoding="utf-8") as f:
+        return json.load(f)[f"model/{model}"]
+
+
+def published_config(data_root, work_dir, model, extra=None):
+    """A run of ``model`` with its published YAML unchanged: the protocol and
+    every width come from the YAML through ``Config``. A dataset's defaults
+    take precedence over a model YAML's columns, label and threshold, so
+    those three are given here exactly as the YAML gives them."""
+    yaml = published_yaml(model)
+    return {
+        "data_path": data_root,
+        **{key: yaml[key] for key in ("load_col", "LABEL_FIELD", "threshold")},
+        "show_progress": False,
+        "state": "WARNING",
+        "checkpoint_dir": os.path.join(work_dir, "saved"),
+        "log_root": os.path.join(work_dir, "log"),
+        "save_dataset": True,
+        **(extra or {}),
+    }
+
+
+def _check_protocol(label, config, model):
+    yaml = published_yaml(model)
+    for key in PROTOCOL_KEYS:
+        if config[key] != yaml[key]:
+            fail(f"{label}: {key} is {config[key]!r}, the YAML gives {yaml[key]!r}")
+
+
+def _check_families(label, result, attrs):
+    """All 12 metric families, finite; the per-attribute ones for each
+    attribute."""
+    for family in METRIC_FAMILIES:
+        keys = [k for k in result if k.startswith(family)]
+        want = len(attrs) if family in PER_ATTRIBUTE else 1
+        if len(keys) != want:
+            fail(f"{label}: {len(keys)} keys of the family {family!r}, expected {want}: "
+                 f"{list(result)}")
+        for attr in attrs if family in PER_ATTRIBUTE else ():
+            if not any(k.endswith(f"attribute {attr}") for k in keys):
+                fail(f"{label}: no {family!r} of the attribute {attr}")
+        for k in keys:
+            if not math.isfinite(result[k]):
+                fail(f"{label}: {k} = {result[k]} is not finite")
+
+
+def _published_run(data_root, work_dir, model, extra, attrs, modules):
+    """One ``run_recbole`` of ``model`` with its published YAML, the launch
+    counts set to 0 just before and read just after. Checks the trainer,
+    the protocol, the sampled path of every validation and of the test and
+    the metric families; returns (result, record, trainer, cfg)."""
+    from recbole_fairrec_tpu_torch import run_recbole
+
+    cfg = published_config(data_root, work_dir, model, extra)
+    label = f"published {model}"
+    for mod in modules.values():
+        mod.launches = 0
+    with _timed_fit(modules) as rec:
+        t0 = time.perf_counter()
+        result = run_recbole(model=model, dataset=ADV_DATASET, config_dict=cfg)
+        _sync()
+        rec["run_recbole_s"] = time.perf_counter() - t0
+    rec["launches"] = {name: mod.launches for name, mod in modules.items()}
+    if len(rec["trainers"]) != 1:
+        fail(f"{label}: run_recbole trained {len(rec['trainers'])} trainers, expected 1")
+    trainer = rec["trainers"][0]
+    _require_card_trainer(trainer, label, model)
+    _check_protocol(label, trainer.config, model)
+    if any(rec["launches"].values()):
+        fail(f"{label}: the sampled path launched {rec['launches']}")
+    if len(rec["valid_s"]) != trainer.epochs or len(rec["test_s"]) != 1:
+        fail(f"{label}: {len(rec['valid_s'])} validations and {len(rec['test_s'])} tests")
+    subsets = len(result["test_result"]) if model.startswith("PFCN") else 1
+    for what, split, path in zip(["validation"] * len(rec["valid_split"]) + ["test"],
+                                 rec["valid_split"] + rec["test_split"],
+                                 rec["valid_paths"] + rec["test_paths"]):
+        if path != "sampled-fused":
+            fail(f"{label}: a {what} took the path {path!r}")
+        # validation: one pass, every subset per batch; test: one pass per subset
+        per_pass = split["batches"] if what == "validation" else split["batches"] // subsets
+        if split["sampled_calls"] != subsets * per_pass or per_pass < 1:
+            fail(f"{label}: a {what} made {split['sampled_calls']} device calls over "
+                 f"{split['batches']} loader batches and {subsets} subsets")
+    for epoch, res in enumerate(rec["valid_results"]):
+        _check_families(f"{label}: validation {epoch}", res, attrs)
+    tests = result["test_result"]
+    for key, res in (tests.items() if model.startswith("PFCN") else [("", tests)]):
+        _check_families(f"{label}: test {key}", res, attrs)
+    if result["best_valid_result"] not in rec["valid_results"]:
+        fail(f"{label}: best_valid_result is none of the validations' results")
+    return result, rec, trainer, cfg
+
+
+def _published_row(model, rec, card, **extra):
+    def split(s, entry):
+        return {"seconds": s, "host_draws_s": entry["draws_s"], "device_s": entry["device_s"],
+                "other_s": s - entry["draws_s"] - entry["device_s"],
+                "loader_batches": entry["batches"], "device_calls": entry["sampled_calls"]}
+
+    return {
+        "model": model, "run_recbole_s": rec["run_recbole_s"],
+        "epoch_s": rec["train_epoch_s"], "examples_per_epoch": rec["examples"][0],
+        "validations": [split(s, e) for s, e in zip(rec["valid_s"], rec["valid_split"])],
+        "test": split(rec["test_s"][0], rec["test_split"][0]),
+        **extra, "card": card,
+    }
+
+
+def _collect_on(trainer, kind, batches, sst, path, k):
+    """Feed ``batches`` to ``trainer``'s collector through the device path or
+    the host path; returns (unrounded result, top-k ids per user, ties). On
+    the host path ``ties`` holds per user whether two of its k + 1 best
+    scores are equal ("exact") or within 1e-6 of each other ("near"); on
+    the device path it is None."""
+    import torch
+
+    exact, near = [], []
+    trainer.model.eval()
+    with torch.no_grad():
+        for batch in batches:
+            if path == "device":
+                trainer._collect_batch(kind, batch, sst)
+                continue
+            _, scores, pos_u, pos_i = trainer._neg_sample_batch_eval(batch, sst)
+            top = -np.sort(-scores, axis=1)[:, : k + 1]
+            gap = np.abs(top[:, 1:] - top[:, :-1])
+            exact.append((gap == 0).any(axis=1))
+            near.append((gap <= 1e-6 * np.abs(top[:, 1:])).any(axis=1))
+            trainer.eval_collector.eval_batch_collect(scores, batch[0], pos_u, pos_i)
+    struct = trainer.eval_collector.get_data_struct()
+    ids = np.asarray(struct.get("rec.items"))
+    ties = {"exact": np.concatenate(exact), "near": np.concatenate(near)} if exact else None
+    return trainer.evaluator.evaluate(struct), ids, ties
+
+
+def _compare_results(label, a, b, ties):
+    """Two evaluations of the same batches: the top-k ids equal except for
+    users with a near tie among their k + 1 best scores, the rank metrics
+    equal when no ids differ, the score-averaged metrics within
+    ``VALUE_RTOL``. Returns the counts for the record."""
+    (res_a, ids_a, _), (res_b, ids_b, _) = a, b
+    differ = (ids_a != ids_b).any(axis=1)
+    unexplained = differ & ~ties
+    if unexplained.any():
+        fail(f"{label}: {int(unexplained.sum())} users' top-k differ without a tie")
+    if list(res_a) != list(res_b):
+        fail(f"{label}: the keys differ: {list(res_a)} / {list(res_b)}")
+    gaps = {}
+    for key, va in res_a.items():
+        vb = res_b[key]
+        if key.startswith(RANK_METRICS):
+            if not differ.any() and va != vb:
+                fail(f"{label}: {key} {va!r} != {vb!r} with the same top-k ids")
+        elif abs(va - vb) > VALUE_RTOL * abs(vb) + VALUE_ATOL:
+            fail(f"{label}: {key} {va!r} and {vb!r} differ beyond rel {VALUE_RTOL}")
+        if va != vb:
+            gaps[key] = abs(va - vb)
+    printed = [key for key in res_a if round(res_a[key], 4) != round(res_b[key], 4)]
+    return {"users": int(len(ids_a)), "tie_users": int(ties.sum()),
+            "differing_topk_users": int(differ.sum()), "unrounded_gaps": gaps,
+            "keys_differing_at_4_places": printed}
+
+
+def check_sampled_paths(trainer, valid_data, cpu_trainer, attrs, card):
+    """On one list of uni100 validation batches (drawn once), for every
+    attribute subset: the device path against the host path on the card
+    (``_neg_sample_batch_eval``: ``predict`` on the card, ranking in numpy),
+    and the card's device path against the CPU's on the first macro batch.
+    Metrics are computed unrounded here (``metric_decimal_place`` 10) and
+    compared as ``_compare_results`` says: the two paths on the card may
+    rank only exactly equal scores differently, the two devices also scores
+    within 1e-6 of each other (ties counted on each device)."""
+    import itertools
+
+    from recbole_fairrec_tpu_torch.evaluator import Evaluator
+
+    for t in (trainer, cpu_trainer):
+        t.config["metric_decimal_place"] = 10
+        t.evaluator = Evaluator(t.config)
+    k = max(trainer.config["topk"])
+    kind = trainer._prepare_eval(valid_data)
+    cpu_trainer._prepare_eval(valid_data)
+    np.random.seed(4)
+    t0 = time.perf_counter()
+    batches = list(trainer._macro_batches(valid_data, kind))
+    draws_s = time.perf_counter() - t0
+    first_users = int(batches[0][2][-1]) + 1
+    rows = []
+    for sst in [c for i in range(1, len(attrs) + 1) for c in itertools.combinations(attrs, i)]:
+        _sync()
+        t0 = time.perf_counter()
+        device = _collect_on(trainer, kind, batches, sst, "device", k)
+        _sync()
+        device_s = time.perf_counter() - t0
+        host = _collect_on(trainer, kind, batches, sst, "host", k)
+        host_s = time.perf_counter() - t0 - device_s
+        # one device's float32 scores: the two paths can part only on equal ones
+        paths = _compare_results(f"sampled paths {list(sst)}: device vs host on the card",
+                                 device, host, host[2]["exact"])
+        card_first = _collect_on(trainer, kind, batches[:1], sst, "device", k)
+        cpu_first = _collect_on(cpu_trainer, kind, batches[:1], sst, "device", k)
+        cpu_ties = _collect_on(cpu_trainer, kind, batches[:1], sst, "host", k)[2]
+        # two devices' float32 scores may part in the last bits: near ties
+        devices = _compare_results(f"sampled paths {list(sst)}: card vs CPU", card_first,
+                                   cpu_first, host[2]["near"][:first_users] | cpu_ties["near"])
+        rows.append({"sst": list(sst), "device_vs_host": paths, "card_vs_cpu": devices,
+                     "device_path_s": device_s, "host_path_s": host_s})
+    row = {"macro_batches": len(batches), "rows": sum(len(b[0]) for b in batches),
+           "users": sum(int(b[2][-1]) + 1 for b in batches), "first_batch_users": first_users,
+           "host_draws_s": draws_s, "subsets": rows, "card": card}
+    print(f"published: sampled paths {json.dumps(row)}", flush=True)
+
+
+def published(data_root, work_dir, card):
+    """Phase 6: the fair models with their published YAMLs unchanged (uni100
+    validation and test, top 5, NDCG@5, the 12 metrics, the rating
+    threshold): PFCN_PMF sm over gender and age for 2 epochs, FOCF
+    (``fair_objective: value``) for 1, NFCF pretrained for 1 and finetuned
+    for 1 from that checkpoint; then a labeled-mode evaluation (AUC,
+    LogLoss, MAE, RMSE) and a full-sort evaluation with GAUC, both on the
+    host paths, of the PFCN_PMF checkpoint. Returns the kernels' launch
+    counts of its runs."""
+    from recbole_fairrec_tpu_torch import load_data_and_model
+    from recbole_fairrec_tpu_torch.data import FOCFDataLoader, create_dataset
+    from recbole_fairrec_tpu_torch.quick_start import load_checkpoint
+
+    modules = {k["name"]: _kernel_module(k) for k in KERNELS}
+    launches = dict.fromkeys(modules, 0)
+
+    def add(rec):
+        for name, n in rec["launches"].items():
+            launches[name] += n
+
+    # PFCN_PMF: filter + discriminators in epoch 0, discriminators in epoch 1
+    attrs = PUBLISHED_ATTRS
+    result, rec, trainer, cfg = _published_run(
+        data_root, work_dir, "PFCN_PMF",
+        {"filter_mode": "sm", "sst_attr_list": attrs, "epochs": 2}, attrs, modules)
+    add(rec)
+    losses = rec["train_epoch_losses"]
+    if not (losses[0][0] != 0.0 and losses[1][0] == 0.0 and all(l[1] for l in losses)):
+        fail(f"published PFCN_PMF: epoch losses {losses}: not filter + dis, then dis only")
+    keys = _subset_keys("sm", attrs)
+    if list(result["test_result"]) != keys:
+        fail(f"published PFCN_PMF: test_result keys {list(result['test_result'])}")
+    row = _published_row("PFCN_PMF", rec, card, epoch_losses=losses, passes=rec["passes"])
+    print(f"published: epochs {json.dumps(row)}", flush=True)
+    print(f"published: PFCN_PMF best valid {result['best_valid_result']}; "
+          f"test {result['test_result']}", flush=True)
+    ckpt = trainer.saved_model_file
+    over = {"log_root": cfg["log_root"]}
+    _, _, trainer2, _, _, valid2, _ = load_data_and_model(ckpt, over)
+    _require_card_trainer(trainer2, "published PFCN_PMF read-back", "PFCN_PMF")
+    _, _, cpu_trainer, _, _, _, _ = load_data_and_model(ckpt, {**over, "use_gpu": False})
+    if cpu_trainer.device.type != "cpu":
+        fail("published: the comparison trainer is not on the CPU")
+    check_sampled_paths(trainer2, valid2, cpu_trainer, attrs, card)
+    del cpu_trainer
+
+    # labeled evaluation and full-sort GAUC of the same checkpoint
+    for mode, metrics, valid_metric, want, path in (
+            ("labeled", ["AUC", "LogLoss", "MAE", "RMSE"], "AUC",
+             {"auc", "logloss", "mae", "rmse"}, "sampled-host"),
+            ("full", ["GAUC", "NDCG", "Hit"], "NDCG@5", {"gauc", "ndcg@5", "hit@5"}, "host")):
+        eval_args = {**published_yaml("PFCN_PMF")["eval_args"], "mode": mode}
+        _, _, t3, _, _, _, test3 = load_data_and_model(ckpt, {
+            **over, "eval_args": eval_args, "metrics": metrics, "valid_metric": valid_metric})
+        _require_card_trainer(t3, f"published {mode}", "PFCN_PMF")
+        _sync()
+        t0 = time.perf_counter()
+        res = t3.evaluate(test3)
+        _sync()
+        took = time.perf_counter() - t0
+        if t3._last_eval_path != path:
+            fail(f"published {mode}: the evaluation took the path {t3._last_eval_path!r}")
+        if list(res) != keys:
+            fail(f"published {mode}: keys {list(res)}")
+        for key, r in res.items():
+            if set(r) != want:
+                fail(f"published {mode} {key}: metrics {list(r)}")
+            # every one lies in [0, 1] but the log loss, which is finite and >= 0
+            _check_metrics(f"published {mode} {key}",
+                           {m: v for m, v in r.items() if m != "logloss"})
+            if not (math.isfinite(r.get("logloss", 0.0)) and r.get("logloss", 0.0) >= 0):
+                fail(f"published {mode} {key}: log loss {r['logloss']}")
+        print(f"published: {mode} evaluation of the PFCN_PMF checkpoint, path {path}, "
+              f"{took:.3f} s: {res}; {card}", flush=True)
+
+    # FOCF: every train batch holds whole item groups
+    seen = {"batches": 0}
+    next_batch = FOCFDataLoader._next_batch_data
+
+    def whole_groups(self):
+        out = next_batch(self)
+        items, counts = np.unique(out[self.iid_field].numpy(), return_counts=True)
+        seg = self.item_segments
+        if not np.array_equal(counts, seg.rows[np.searchsorted(seg.uid, items)]):
+            fail("published FOCF: a train batch holds part of an item's rows")
+        seen["batches"] += 1
+        return out
+
+    FOCFDataLoader._next_batch_data = whole_groups
+    try:
+        result, rec, focf, _ = _published_run(
+            data_root, work_dir, "FOCF", {"fair_objective": "value", "epochs": 1},
+            ["gender"], modules)
+    finally:
+        FOCFDataLoader._next_batch_data = next_batch
+    add(rec)
+    steps = -(-rec["examples"][0] // focf.config["train_batch_size"])
+    if seen["batches"] != steps:
+        fail(f"published FOCF: {seen['batches']} train batches checked, {steps} expected")
+    row = _published_row("FOCF", rec, card, train_batches=seen["batches"],
+                         epoch_losses=rec["train_epoch_losses"])
+    print(f"published: epochs {json.dumps(row)}", flush=True)
+    print(f"published: FOCF test {result['test_result']}", flush=True)
+
+    # NFCF: pretrain, then finetune from that checkpoint with users frozen
+    result, rec, pre_trainer, _ = _published_run(
+        data_root, work_dir, "NFCF", {"epochs": 1}, ["gender"], modules)
+    add(rec)
+    pre_row = _published_row("NFCF pretrain", rec, card)
+    pre_ckpt = pre_trainer.saved_model_file
+    pre = load_checkpoint(pre_ckpt)["params"]
+    result, rec, fine_trainer, _ = _published_run(
+        data_root, work_dir, "NFCF", {"epochs": 1, "load_pretrain_path": pre_ckpt},
+        ["gender"], modules)
+    add(rec)
+    fine = fine_trainer.model
+    gender = np.asarray(create_dataset(fine_trainer.config).get_user_feature()["gender"])[1:]
+    expected = _debiased_users(pre["user_embedding"], gender)
+    got = fine.user_embedding.weight.detach().cpu().numpy()
+    if fine.user_embedding.weight.requires_grad or not np.array_equal(got, expected):
+        fail("published NFCF: the finetuned user table is not the debiased pretrain table")
+    if np.array_equal(fine.item_embedding.weight.detach().cpu().numpy(), pre["item_embedding"]):
+        fail("published NFCF: the item table was not re-initialised")
+    print(f"published: epochs {json.dumps(pre_row)}", flush=True)
+    print(f"published: epochs {json.dumps(_published_row('NFCF finetune', rec, card))}",
+          flush=True)
+    print(f"published: NFCF finetune test {result['test_result']}; the user table is the "
+          f"debiased pretrain table bit for bit, the item table re-initialised", flush=True)
+    return launches
+
+
+def _debiased_users(table, sst_value):
+    """NFCF's finetune user table from a pretrain one, recomputed here in
+    numpy float32: the difference of the two groups' mean embeddings,
+    normalised, projected out of every user row (row 0, PAD, is kept)."""
+    table = np.asarray(table, dtype=np.float32)
+    users = table[1:].copy()
+    groups = np.unique(sst_value)
+    e1 = users[sst_value == groups[0]].mean(axis=0)
+    e2 = users[sst_value == groups[1]].mean(axis=0)
+    direction = (e1 - e2) / np.linalg.norm(e1 - e2)
+    out = table.copy()
+    out[1:] = users - (users @ direction)[:, None] * direction[None, :]
+    return out
 
 
 def _step_capturing_grads(trainer, batch, loss_name, sst, tag):
@@ -981,10 +1403,10 @@ def time_step_split(trainer, train_data, card, steps=SPLIT_STEPS):
 def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
     """The registry's trainer for ``model``, on the card: a configuration
     that lands on the CPU would pass every later check without a kernel."""
-    import importlib
+    from recbole_fairrec_tpu_torch.utils import get_trainer
 
-    cls = getattr(importlib.import_module(f"{PACKAGE}.trainer"), f"{model}Trainer")
-    if not isinstance(trainer, cls):
+    cls = get_trainer(trainer.config["MODEL_TYPE"], model)
+    if type(trainer) is not cls:
         fail(f"{phase}: the trainer is a {type(trainer).__name__}, not a {cls.__name__}")
     if trainer.device.type != "cuda":
         fail(f"{phase}: the trainer is on {trainer.device}, not on the card")
@@ -1012,7 +1434,7 @@ def serving_inputs(trainer, loader, sst_list=None):
 
     from recbole_fairrec_tpu_torch.utils import _bucket
 
-    interaction = next(iter(trainer._macro_batches(loader)))[0]
+    interaction = next(iter(trainer._macro_batches(loader, "full")))[0]
     n = len(interaction)
     pad_to = max(trainer._full_sort_pad or n, _bucket(n, 512))
     with torch.no_grad():
@@ -1172,7 +1594,12 @@ def main():
     print(f"adversarial: wrote the dataset in {time.perf_counter() - t0:.3f} s", flush=True)
     adv_launches, adv_rows = adversarial(data_root, adv_work, card)
 
-    # phase 6: every kernel against its plain version
+    # phase 6: the fair models with their published protocol
+    t0 = time.perf_counter()
+    published_launches = published(data_root, os.path.join(work, "published"), card)
+    print(f"published: phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 7: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     U, T, k_prime = serving_inputs(trainer, test_data)
     gen = torch.Generator().manual_seed(2020)
@@ -1197,7 +1624,7 @@ def main():
         "replaces": k["replaces"],
         "launches": launches[k["name"]] + train_launches[k["name"]] + sum(adv_launches.values()),
         "launches_by_path": {"serve": launches[k["name"]], "train": train_launches[k["name"]],
-                             **adv_launches},
+                             **adv_launches, "published": published_launches[k["name"]]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

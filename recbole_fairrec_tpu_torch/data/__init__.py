@@ -1,6 +1,12 @@
 from .interaction import Interaction, cat_interactions
 from .dataset import Dataset
-from .dataloader import AbstractDataLoader, FullSortEvalDataLoader, TrainDataLoader
+from .dataloader import (
+    AbstractDataLoader,
+    FOCFDataLoader,
+    FullSortEvalDataLoader,
+    NegSampleEvalDataLoader,
+    TrainDataLoader,
+)
 from .utils import create_dataset, create_samplers, data_preparation, get_dataloader
 
 __all__ = [
@@ -8,7 +14,9 @@ __all__ = [
     "cat_interactions",
     "Dataset",
     "AbstractDataLoader",
+    "FOCFDataLoader",
     "FullSortEvalDataLoader",
+    "NegSampleEvalDataLoader",
     "TrainDataLoader",
     "create_dataset",
     "create_samplers",

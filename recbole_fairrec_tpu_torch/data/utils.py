@@ -3,10 +3,10 @@
 Counterpart of ``recbole_fairrec_tpu/data/utils.py``: pickle caches for the
 filtered dataset and the split loaders (invalidated when a dataset argument
 changes; the file names end in ``-torch.pkl`` so the two packages never
-read each other's caches) and phase-accumulating sampler creation. Full-sort evaluation is
-the only evaluation mode of the port so far; sampled (``uni100``/``pop100``)
-and labeled evaluation, and FOCF's item-grouped train loader, raise
-``NotImplementedError``.
+read each other's caches), phase-accumulating sampler creation and the
+loader classes by model and evaluation mode: full-sort, sampled
+(``uni100``/``pop100``) and labeled evaluation, and FOCF's item-grouped
+train loader.
 """
 
 from __future__ import annotations
@@ -17,7 +17,13 @@ from logging import getLogger
 
 from ..sampler import RepeatableSampler, Sampler
 from ..utils import ensure_dir, set_color
-from .dataloader import FullSortEvalDataLoader, TrainDataLoader
+from .dataloader import (
+    AbstractDataLoader,
+    FOCFDataLoader,
+    FullSortEvalDataLoader,
+    NegSampleEvalDataLoader,
+    TrainDataLoader,
+)
 from .dataset import Dataset
 
 # config keys whose change invalidates a cached dataset
@@ -73,7 +79,7 @@ def load_split_dataloaders(config):
         return None
     with open(path, "rb") as f:
         loaders = pickle.load(f)
-    if not all(isinstance(d, (TrainDataLoader, FullSortEvalDataLoader)) for d in loaders):
+    if not all(isinstance(d, AbstractDataLoader) for d in loaders):
         return None
     train_data, valid_data, test_data = loaders
     for arg in _DATASET_ARGS + ["seed", "repeatable", "eval_args"]:
@@ -123,18 +129,28 @@ def data_preparation(config, dataset):
     return train_data, valid_data, test_data
 
 
-def get_dataloader(config, phase):
-    if config["model"] == "FOCF":
-        raise NotImplementedError("FOCF's item-grouped loader is not ported yet")
-    if phase == "train":
-        return TrainDataLoader
+def _eval_loader_class(config):
     strategy = config["eval_neg_sample_args"]["strategy"]
+    if strategy in ("none", "by"):
+        return NegSampleEvalDataLoader
     if strategy == "full":
         return FullSortEvalDataLoader
-    raise NotImplementedError(
-        f"eval strategy [{strategy}] (sampled or labeled evaluation) is not ported "
-        "yet; use eval_args mode: full"
-    )
+    raise ValueError(f"eval strategy [{strategy}] not supported")
+
+
+def get_dataloader(config, phase):
+    register_table = {"FOCF": _get_FOCF_dataloader}
+    if config["model"] in register_table:
+        return register_table[config["model"]](config, phase)
+    if phase == "train":
+        return TrainDataLoader
+    return _eval_loader_class(config)
+
+
+def _get_FOCF_dataloader(config, phase):
+    if phase == "train":
+        return FOCFDataLoader
+    return _eval_loader_class(config)
 
 
 def create_samplers(config, dataset, built_datasets):

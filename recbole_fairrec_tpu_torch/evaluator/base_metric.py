@@ -50,6 +50,11 @@ class TopkMetric(AbstractMetric):
         )
 
 
+def _squeeze_last(values):
+    values = np.asarray(values)
+    return values.squeeze(-1) if values.ndim and values.shape[-1] == 1 else values
+
+
 class LossMetric(AbstractMetric):
     metric_type = EvaluatorType.VALUE
     metric_need = ["rec.score", "data.label"]
@@ -58,8 +63,11 @@ class LossMetric(AbstractMetric):
         super().__init__(config)
 
     def used_info(self, dataobject):
-        preds = np.asarray(dataobject.get("rec.score")).squeeze(-1)
-        trues = np.asarray(dataobject.get("data.label")).squeeze(-1)
+        # the last axis goes only where it has size 1 (torch's squeeze(-1),
+        # which the reference calls): the labeled path collects [N] scores,
+        # on which numpy's squeeze(-1) raises
+        preds = _squeeze_last(dataobject.get("rec.score"))
+        trues = _squeeze_last(dataobject.get("data.label"))
         return preds, trues
 
     def output_metric(self, metric, dataobject):

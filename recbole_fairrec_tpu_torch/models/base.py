@@ -93,6 +93,9 @@ class FairRecommender(AbstractRecommender):
         self.n_users = dataset.num(self.USER_ID)
         self.n_items = dataset.num(self.ITEM_ID)
         self.config = config
+        self._seed = int(config["seed"] or 0)
+        self._dropout_generators = {}
+        self._device_copies = {}
         # float32 means float32: the ranking paths never run in TF32
         if config["compute_dtype"] not in (None, "float32"):
             raise NotImplementedError(
@@ -116,6 +119,23 @@ class FairRecommender(AbstractRecommender):
         """Adversarial optimizer groups: group name → top-level parameter
         names. Default: no groups."""
         return {}
+
+    def dropout_generator(self, device):
+        """The generator of this model's dropout masks on ``device``, seeded
+        from the config's seed when first asked for."""
+        key = str(device)
+        if key not in self._dropout_generators:
+            self._dropout_generators[key] = torch.Generator(device=device).manual_seed(self._seed)
+        return self._dropout_generators[key]
+
+    def _on_device(self, name, tensor, device):
+        """``tensor`` (a lookup table that is not a parameter or a buffer, so
+        that the state dict stays the JAX package's tree) on ``device``,
+        copied there once."""
+        key = (name, str(device))
+        if key not in self._device_copies:
+            self._device_copies[key] = tensor.to(device)
+        return self._device_copies[key]
 
     @staticmethod
     def lookup(table: nn.Embedding, ids):

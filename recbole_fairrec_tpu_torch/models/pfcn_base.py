@@ -66,9 +66,6 @@ class PFCNBase(FairRecommender):
             lut, k = self._sst_code_map(dataset, sst)
             self.sst_lut[sst] = lut
             self.sst_size[sst] = k
-        self._seed = int(config["seed"] or 0)
-        self._dropout_generators = {}
-        self._luts = {}
 
     # ------------------------------------------------------------ structure
 
@@ -114,19 +111,8 @@ class PFCNBase(FairRecommender):
             for sst in self.sst_attrs
         })
 
-    def dropout_generator(self, device):
-        """The generator of this model's dropout masks on ``device``, seeded
-        from the config's seed when first asked for."""
-        key = str(device)
-        if key not in self._dropout_generators:
-            self._dropout_generators[key] = torch.Generator(device=device).manual_seed(self._seed)
-        return self._dropout_generators[key]
-
     def _device_lut(self, sst, device):
-        key = (sst, str(device))
-        if key not in self._luts:
-            self._luts[key] = self.sst_lut[sst].to(device)
-        return self._luts[key]
+        return self._on_device(sst, self.sst_lut[sst], device)
 
     # -------------------------------------------------------------- filters
 

@@ -84,24 +84,32 @@ class PFCNTrainer(Trainer):
         return [subset for i in range(1, self.sst_num + 1)
                 for subset in itertools.combinations(self.sst_attrs, i)]
 
-    def _collect(self, eval_data, subsets):
+    def _collect(self, eval_data, kind, subsets):
         """Feed every macro batch of ``eval_data`` to the collector once per
-        subset in ``subsets`` (batches outside, subsets inside)."""
-        for batched_data in self._macro_batches(eval_data):
+        subset in ``subsets`` (batches outside, subsets inside): one pass over
+        the loader, so a sampled loader draws its negatives once for all of
+        them."""
+        for batched_data in self._macro_batches(eval_data, kind):
             for sst_list in subsets:
-                self._collect_batch(batched_data, sst_list)
+                self._collect_batch(kind, batched_data, sst_list)
         self.eval_collector.model_collect(self.model)
         return self.evaluator.evaluate(self.eval_collector.get_data_struct())
 
     @torch.no_grad()
     def _evaluate_groups(self, eval_data, groups, load_best_model, model_file):
-        """One result dict per group of subsets, after loading the best
-        checkpoint when asked."""
+        """One result dict per group of subsets, one pass over the loader per
+        group (each group of a sampled loader sees fresh negatives), after
+        loading the best checkpoint when asked.
+
+        As in the JAX package, a loader that an earlier device evaluation
+        macro-sized is not sized back when the host path runs: the per-user
+        negative draws (in user order) and the per-user metrics do not depend
+        on where batches end, so neither do the results."""
         if load_best_model:
             self._load_best(model_file)
-        self._prepare_eval(eval_data)
+        kind = self._prepare_eval(eval_data, reset_macro_rows=False)
         self.model.eval()
-        return [self._collect(eval_data, subsets) for subsets in groups]
+        return [self._collect(eval_data, kind, subsets) for subsets in groups]
 
     def pfcn_evaluate(self, eval_data, load_best_model=True, model_file=None,
                       show_progress=False):

@@ -2,8 +2,8 @@
 
 Counterpart of ``recbole_fairrec_tpu/trainer/trainer.py``: the optimizer
 zoo, the train step and the epoch loop (``fit``), checkpoints and resume,
-and full-sort evaluation (batch padding, eval macro-batching, the dense and
-streaming paths, ``evaluate``).
+and evaluation (eval macro-batching, the device and host paths,
+``evaluate``).
 
 Training. One step is ``zero_grad`` of the whole model → device negatives
 when the loader runs in ``device_neg_sampling`` mode → the model's loss →
@@ -19,16 +19,26 @@ sum of the step losses, accumulated on the device and read once per epoch.
 steps into one dispatch, which changes no result there) are accepted and
 ignored.
 
-Full-sort evaluation has two paths, as in the JAX package:
+Evaluation takes the JAX package's paths (``_collect_batch``):
 
-* dense (default): ``full_sort_predict`` scores ``[B, |I|]`` with
+* full-sort, dense (default): ``full_sort_predict`` scores ``[B, |I|]`` with
   ``torch.matmul``, then ``ops.eval_fused.full_sort_eval_step`` masks PAD and
   history and takes the top-k on the device;
-* streaming (``streaming_eval: True``, monotone models only): the model's
-  retrieval embeddings go through ``ops.fused_topk.fused_topk_scores`` for
-  k' = k + max_history + 1 candidates — the hand-written CUDA kernel on a
+* full-sort, streaming (``streaming_eval: True``, monotone models only): the
+  model's retrieval embeddings go through ``ops.fused_topk.fused_topk_scores``
+  for k' = k + max_history + 1 candidates — the hand-written CUDA kernel on a
   card, its plain version on the CPU — and PAD/history are filtered on the
-  host. ``_last_eval_path`` names the path that ran.
+  host;
+* sampled (``uni100`` / ``pop100``): ``_collect_sampled_fused`` rebuilds the
+  row lanes on the device from per-user counts, runs ``predict`` and
+  ``ops.eval_fused.sampled_topk_from_scores``;
+* host: the rank-curve metric (GAUC, ``rec.meanrank``) and the value metrics
+  (AUC, LogLoss, MAE, RMSE: ``rec.score``, ``data.label``; labeled
+  evaluation) need every score on the host. The model still scores on the
+  trainer's device (``_full_sort_scores``, ``_neg_sample_batch_eval``); the
+  collector ranks in numpy.
+
+``_last_eval_path`` names the path that ran.
 """
 
 from __future__ import annotations
@@ -149,6 +159,8 @@ class Trainer(AbstractTrainer):
         self.eval_collector = Collector(config)
         self.evaluator = Evaluator(config)
         self.tot_item_num = None
+        self.test_batch_size = config["eval_batch_size"]
+        self.item_tensor = None
 
     # ------------------------------------------------------------ optimizer
 
@@ -611,9 +623,75 @@ class Trainer(AbstractTrainer):
         out = self._get_predict_fn(sst_list)(batch)
         return out.reshape(-1)[:n].cpu().numpy()
 
+    # ------------------------------------------------------------ host paths
+
+    def _full_sort_scores(self, interaction, sst_list=None):
+        """The full-catalogue scores of a user batch, on the host (float64)."""
+        n = len(interaction)
+        pad_to = getattr(self, "_full_sort_pad", None) or n
+        batch = self._to_batch(interaction, pad_to=max(pad_to, n))
+        scores = self._get_full_sort_fn(sst_list)(batch)
+        scores = scores.reshape(-1, self.tot_item_num)[:n].cpu().numpy()
+        return scores.astype(np.float64)
+
+    def _full_sort_batch_eval(self, batched_data, sst_list=None):
+        interaction, history_index, positive_u, positive_i = batched_data
+        try:
+            scores = self._full_sort_scores(interaction, sst_list)
+        except NotImplementedError:
+            scores = self._predict_all_items_fallback(interaction)
+        scores[:, 0] = NEG_INF
+        if history_index is not None:
+            hist_u, hist_i = history_index
+            scores[hist_u, hist_i] = NEG_INF
+        return interaction, scores, positive_u, positive_i
+
+    def _predict_all_items_fallback(self, interaction):
+        """Every item scored through ``predict`` for a model without
+        ``full_sort_predict``."""
+        inter_len = len(interaction)
+        new_inter = interaction.repeat_interleave(self.tot_item_num)
+        new_inter.update(self.item_tensor.repeat(inter_len))
+        batch_size = len(new_inter)
+        if batch_size <= self.test_batch_size:
+            scores = self._predict_scores(new_inter)
+        else:
+            scores = self._spilt_predict(new_inter, batch_size)
+        return np.asarray(scores, dtype=np.float64).reshape(-1, self.tot_item_num)
+
+    def _neg_sample_batch_eval(self, batched_data, sst_list=None):
+        """Sampled or labeled batch through ``predict`` on the trainer's
+        device and the rest on the host: the row scores as they are for the
+        value metrics, else scattered into a [users, |I|] −inf matrix."""
+        interaction, row_idx, positive_u, positive_i = batched_data
+        batch_size = len(interaction)
+        if batch_size <= self.test_batch_size:
+            origin_scores = self._predict_scores(interaction, sst_list)
+        else:
+            origin_scores = self._spilt_predict(interaction, batch_size, sst_list)
+
+        if self.config["eval_type"] == EvaluatorType.VALUE:
+            return interaction, origin_scores, positive_u, positive_i
+        col_idx = interaction[self.config["ITEM_ID_FIELD"]].numpy()
+        batch_user_num = int(positive_u[-1]) + 1
+        scores = np.full((batch_user_num, self.tot_item_num), NEG_INF)
+        scores[np.asarray(row_idx), col_idx] = origin_scores.reshape(-1)
+        return interaction, scores, positive_u, positive_i
+
+    def _spilt_predict(self, interaction, batch_size, sst_list=None):
+        """``predict`` in blocks of ``eval_batch_size`` rows."""
+        results = []
+        for lo in range(0, batch_size, self.test_batch_size):
+            block = interaction[lo : min(lo + self.test_batch_size, batch_size)]
+            results.append(self._predict_scores(block, sst_list))
+        return np.concatenate(results, axis=0)
+
+    # ----------------------------------------------------------- device paths
+
     def _fused_eval_ok(self):
         """The device paths cover the top-k / positive-score resources; the
-        rank-curve and VALUE resources need the host path (not ported)."""
+        rank-curve (``rec.meanrank``) and value (``rec.score``,
+        ``data.label``) resources take the host paths."""
         r = self.eval_collector.register
         return not (
             r.need("rec.meanrank") or r.need("rec.score") or r.need("data.label")
@@ -673,43 +751,131 @@ class Trainer(AbstractTrainer):
             payload, interaction, positive_u, positive_i
         )
 
-    def _macro_batches(self, eval_data):
-        """Merge consecutive full-sort loader batches into one dispatch of up
-        to ``eval_macro_scores`` score cells ([users × |I|]); per-user
-        row-block layout is kept exactly (indices offset by the running
-        user count)."""
-        target_scores = self.config["eval_macro_scores"] or 32_000_000
-        max_users = max(1, target_scores // max(self.tot_item_num or 1, 1))
-        buf = []
-        acc_users = 0
-        for batched_data in eval_data:
-            buf.append(batched_data)
-            acc_users += len(batched_data[0])
-            if acc_users >= max_users:
-                yield self._merge_batches(buf)
-                buf, acc_users = [], 0
-        if buf:
-            yield self._merge_batches(buf)
+    def _collect_sampled_fused(self, batched_data, sst_list=None):
+        """Sampled evaluation on the device: the row, user and positive lanes
+        are rebuilt there from the per-user positive counts (each user's
+        block is its positives followed by (times − 1) × count negatives),
+        the rows go through ``predict``, ``sampled_topk_from_scores`` ranks
+        them, and the first negative block's scores are gathered for the
+        value-gap metrics. Only the item lane and per-user arrays go to the
+        card, and only the O(users · k) payload comes back."""
+        from ..ops.eval_fused import sampled_topk_from_scores
+
+        interaction, _, positive_u, positive_i = batched_data
+        uid_field = self.config["USER_ID_FIELD"]
+        items_cpu = interaction[self.config["ITEM_ID_FIELD"]]
+        counts_np = np.bincount(positive_u)
+        n_users, n_pos, n_rows = len(counts_np), len(positive_u), len(items_cpu)
+        times = n_rows // max(int(counts_np.sum()), 1)
+        block_starts = np.concatenate([[0], np.cumsum(counts_np * times)])[:-1]
+
+        dev = self.device
+        items = items_cpu.to(dev)
+        counts = torch.as_tensor(counts_np, device=dev)
+        uid_list = interaction[uid_field][torch.from_numpy(block_starts)].to(dev)
+        user_slot = torch.arange(n_users, device=dev)
+        row_idx = torch.repeat_interleave(user_slot, counts * times, output_size=n_rows)
+        pos_u = torch.repeat_interleave(user_slot, counts, output_size=n_pos)
+        starts = torch.as_tensor(block_starts, device=dev)
+        cum_pos = torch.cumsum(counts, 0) - counts
+        pos_rows = starts[pos_u] + torch.arange(n_pos, device=dev) - cum_pos[pos_u]
+        pos_i = items[pos_rows]
+
+        batch = {uid_field: uid_list[row_idx], self.config["ITEM_ID_FIELD"]: items}
+        scores = self._get_predict_fn(sst_list)(batch).reshape(-1)
+        topk_idx, rec_topk, pos_score = sampled_topk_from_scores(
+            scores, row_idx, items, torch.ones_like(scores), pos_u, pos_i,
+            torch.ones(n_pos, device=dev), n_users, self.tot_item_num,
+            max(self.config["topk"]),
+        )
+        r = self.eval_collector.register
+        extra = {}
+        if r.need("rec.negative_score"):
+            extra["rec.negative_score"] = scores[pos_rows + counts[pos_u]].cpu().numpy()
+        if r.need("data.negative_i"):
+            neg_idx = self._neg_block_positions(n_rows, positive_u)
+            extra["data.negative_i"] = items_cpu.numpy()[neg_idx]
+        self._last_eval_path = "sampled-fused"
+        self._emit_fused_payload(
+            interaction, positive_u, positive_i, topk_idx, rec_topk, pos_score,
+            n_users, n_pos, extra,
+        )
 
     @staticmethod
-    def _merge_batches(buf):
+    def _neg_block_positions(n_rows, positive_u):
+        """Row positions of each user's first negative block."""
+        k = np.bincount(positive_u)
+        k = k[k > 0]
+        times = n_rows // max(k.sum(), 1)
+        block_starts = np.concatenate([[0], np.cumsum(k * times)])[:-1]
+        return np.concatenate(
+            [np.arange(s + kj, s + 2 * kj) for s, kj in zip(block_starts, k)]
+        )
+
+    def _macro_rows_target(self):
+        """Sampled-evaluation rows per device dispatch (``eval_macro_rows``
+        is the older name of the key)."""
+        val = self.config["eval_macro_rows_sampled"]
+        if val is None:
+            val = self.config["eval_macro_rows"]
+        return val or 4_194_304
+
+    def _macro_batches(self, eval_data, kind):
+        """Merge consecutive loader batches into one dispatch of up to
+        ``eval_macro_scores`` score cells ([users × |I|]) and, when sampled,
+        up to ``_macro_rows_target`` rows; per-user row-block layout is kept
+        exactly (indices offset by the running user count). A sampled loader
+        that :meth:`set_macro_rows` already sized passes through as it is;
+        labeled batches pass through unmerged."""
+        target_scores = self.config["eval_macro_scores"] or 32_000_000
+        max_users = max(1, target_scores // max(self.tot_item_num or 1, 1))
+        target_rows = None if kind == "full" else self._macro_rows_target()
+        if getattr(eval_data, "_macro_sized", False):
+            yield from eval_data
+            return
+        buf = []
+        acc_users = acc_rows = 0
+        for batched_data in eval_data:
+            if kind != "full" and batched_data[1] is None:
+                yield batched_data
+                continue
+            buf.append(batched_data)
+            if kind == "full":
+                acc_users += len(batched_data[0])
+            else:
+                acc_rows += len(batched_data[0])
+                acc_users += int(batched_data[2][-1]) + 1
+            if acc_users >= max_users or (target_rows and acc_rows >= target_rows):
+                yield self._merge_batches(buf, kind)
+                buf, acc_users, acc_rows = [], 0, 0
+        if buf:
+            yield self._merge_batches(buf, kind)
+
+    @staticmethod
+    def _merge_batches(buf, kind):
         if len(buf) == 1:
             return buf[0]
         merged_inter = cat_interactions([b[0] for b in buf])
-        pos_u_parts, pos_i_parts, hist_u_parts, hist_i_parts = [], [], [], []
+        pos_u_parts, pos_i_parts, second_parts = [], [], []
         offset = 0
-        for inter, (hist_u, hist_i), pos_u, pos_i in buf:
-            hist_u_parts.append(hist_u + offset)
-            hist_i_parts.append(hist_i)
+        for inter, second, pos_u, pos_i in buf:
+            if kind == "full":
+                hist_u, hist_i = second
+                second_parts.append((hist_u + offset, hist_i))
+                n_users = len(inter)
+            else:
+                second_parts.append(second + offset)
+                n_users = int(pos_u[-1]) + 1
             pos_u_parts.append(pos_u + offset)
             pos_i_parts.append(pos_i)
-            offset += len(inter)
-        return (
-            merged_inter,
-            (np.concatenate(hist_u_parts), np.concatenate(hist_i_parts)),
-            np.concatenate(pos_u_parts),
-            np.concatenate(pos_i_parts),
-        )
+            offset += n_users
+        pos_u = np.concatenate(pos_u_parts)
+        pos_i = np.concatenate(pos_i_parts)
+        if kind == "full":
+            hist = (np.concatenate([p[0] for p in second_parts]),
+                    np.concatenate([p[1] for p in second_parts]))
+            return merged_inter, hist, pos_u, pos_i
+        return merged_inter, np.concatenate(second_parts), pos_u, pos_i
 
     # ------------------------------------------------------- streaming eval
 
@@ -801,17 +967,27 @@ class Trainer(AbstractTrainer):
     def _streaming_eval_ok(self):
         return self.config["streaming_eval"] and self._retrieval_eval_capable()
 
-    def _collect_batch(self, batched_data, sst_list=None):
-        """Score one full-sort eval batch and feed the collector."""
-        if self._streaming_eval_ok():
-            return self._collect_full_sort_streaming(batched_data, sst_list)
-        if not self._fused_eval_ok():
-            raise NotImplementedError(
-                "metrics that need the full score matrix on the host (rank curves, "
-                "value metrics) are not ported yet"
+    def _collect_batch(self, kind, batched_data, sst_list=None):
+        """Score one eval batch and feed the collector: on the device where
+        the metrics allow it, else through the host paths."""
+        if kind == "full":
+            if self._streaming_eval_ok():
+                return self._collect_full_sort_streaming(batched_data, sst_list)
+            if self._fused_eval_ok():
+                self._last_eval_path = "fused"
+                return self._collect_full_sort_fused(batched_data, sst_list)
+            self._last_eval_path = "host"
+            interaction, scores, positive_u, positive_i = self._full_sort_batch_eval(
+                batched_data, sst_list
             )
-        self._last_eval_path = "fused"
-        return self._collect_full_sort_fused(batched_data, sst_list)
+        else:
+            if self._fused_eval_ok() and batched_data[1] is not None:
+                return self._collect_sampled_fused(batched_data, sst_list)
+            self._last_eval_path = "sampled-host"
+            interaction, scores, positive_u, positive_i = self._neg_sample_batch_eval(
+                batched_data, sst_list
+            )
+        self.eval_collector.eval_batch_collect(scores, interaction, positive_u, positive_i)
 
     def _load_best(self, model_file=None):
         from ..quick_start import load_checkpoint
@@ -820,13 +996,26 @@ class Trainer(AbstractTrainer):
         self._load_params_from_checkpoint(load_checkpoint(checkpoint_file))
         self.logger.info(f"Loading model structure and parameters from {checkpoint_file}")
 
-    def _prepare_eval(self, eval_data):
-        if not isinstance(eval_data, FullSortEvalDataLoader):
-            raise NotImplementedError("sampled evaluation is not ported yet")
-        self._full_sort_pad = eval_data.step
-        self._stream_kprime = self._compute_stream_kprime(eval_data)
+    def _prepare_eval(self, eval_data, reset_macro_rows=True):
+        """Size the evaluation for ``eval_data``; returns its kind, "full" or
+        "sampled". A sampled loader is macro-sized when the device path can
+        take its batches; otherwise (``reset_macro_rows``) sized back to the
+        config's batches, which the host paths merge themselves."""
+        if isinstance(eval_data, FullSortEvalDataLoader):
+            kind = "full"
+            self._full_sort_pad = eval_data.step
+            self._stream_kprime = self._compute_stream_kprime(eval_data)
+            if self.item_tensor is None:
+                self.item_tensor = eval_data.dataset.get_item_feature()
+        else:
+            kind = "sampled"
+            if self._fused_eval_ok():
+                eval_data.set_macro_rows(self._macro_rows_target())
+            elif reset_macro_rows:
+                eval_data.reset_macro_rows()
         if self.config["eval_type"] == EvaluatorType.RANKING:
             self.tot_item_num = eval_data.dataset.item_num
+        return kind
 
     @torch.no_grad()
     def evaluate(self, eval_data, load_best_model=False, model_file=None, show_progress=False):
@@ -834,11 +1023,11 @@ class Trainer(AbstractTrainer):
             return
         if load_best_model:
             self._load_best(model_file)
-        self._prepare_eval(eval_data)
+        kind = self._prepare_eval(eval_data)
         self.model.eval()
         self.eval_collector.model_collect(self.model)
-        for batched_data in self._macro_batches(eval_data):
-            self._collect_batch(batched_data)
+        for batched_data in self._macro_batches(eval_data, kind):
+            self._collect_batch(kind, batched_data)
         struct = self.eval_collector.get_data_struct()
         result = self.evaluator.evaluate(struct)
         self.wandblogger.log_eval_metrics(result, head="eval")

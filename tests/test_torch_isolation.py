@@ -84,7 +84,9 @@ def test_new_training_modules_are_checked():
     assert {"ops/neg_sampling.py", "models/losses.py", "utils/loggers.py", "trainer/optim.py",
             "trainer/adversarial.py", "trainer/trainer.py", "quick_start.py",
             "models/layers.py", "models/pfcn_base.py", "models/pfcn_mlp.py",
-            "models/pfcn_dmf.py", "models/pfcn_biasedmf.py", "utils/jax_params.py"} <= rel
+            "models/pfcn_dmf.py", "models/pfcn_biasedmf.py", "utils/jax_params.py",
+            "models/focf.py", "models/nfcf.py", "data/dataloader.py", "data/utils.py",
+            "ops/eval_fused.py"} <= rel
 
 
 def test_kernel_sweep_imports_no_jax():
@@ -145,6 +147,36 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_PUBLISHED_SCRIPT = r"""
+import glob, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from recbole_fairrec_tpu_torch import run_recbole
+work = sys.argv[2]
+root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500,
+                                name=chip_smoke.ADV_DATASET, attributes=True)
+runs = [("PFCN_PMF", {"filter_mode": "sm", "sst_attr_list": ["gender", "age"], "epochs": 2,
+                      "save_sst_embed": False}),
+        ("FOCF", {"fair_objective": "value", "epochs": 1}),
+        ("NFCF", {"epochs": 1})]
+for model, extra in runs:
+    cfg = chip_smoke.published_config(root, work + "/" + model, model,
+                                      {**extra, "use_gpu": False, "train_batch_size": 256})
+    result = run_recbole(model=model, dataset=chip_smoke.ADV_DATASET, config_dict=cfg)
+    tests = result["test_result"]
+    for res in (tests.values() if model == "PFCN_PMF" else [tests]):
+        chip_smoke._check_families(model, res, extra.get("sst_attr_list", ["gender"]))
+pre = glob.glob(work + "/NFCF/saved/NFCF-*.pth")[0]
+cfg = chip_smoke.published_config(root, work + "/NFCF", "NFCF", {
+    "epochs": 1, "use_gpu": False, "train_batch_size": 256, "load_pretrain_path": pre})
+chip_smoke._check_families("NFCF finetune", run_recbole(
+    model="NFCF", dataset=chip_smoke.ADV_DATASET, config_dict=cfg)["test_result"], ["gender"])
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                       "recbole_fairrec_tpu"))
+print("LEAKED", leaked)
+"""
+
 _SERVE_ON_CPU_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -181,6 +213,18 @@ def test_adversarial_path_runs_without_jax(tmp_path):
     a fresh interpreter: afterwards no JAX, optax, JAX-package, pandas or
     yaml module is loaded."""
     proc = _run_script(_ADVERSARIAL_SCRIPT, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_published_protocol_runs_without_jax(tmp_path):
+    """PFCN_PMF (sm over gender and age), FOCF (value) and NFCF (pretrain,
+    then finetune) with their published YAMLs (uni100, the 12 metrics, the
+    rating threshold), chip_smoke's configurations at a tiny size, on the
+    CPU in a fresh interpreter: every metric family in every test dict, and
+    afterwards no JAX, optax, JAX-package, pandas or yaml module is
+    loaded."""
+    proc = _run_script(_PUBLISHED_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
 

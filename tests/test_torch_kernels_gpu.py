@@ -292,3 +292,117 @@ def test_fused_topk_on_filtered_retrieval_inputs(card, tmp_path, model_name, mod
     if model_name == "PFCN_DMF":
         torch.testing.assert_close(U.norm(dim=1), torch.ones(N_USERS - 1, device=card))
     _near_tie_equal(U, T, 173)
+
+
+# ---------------------------------- the published evaluation protocol, on card
+
+
+def _write_fair_dataset(root, n_users=120, n_items=300, seed=4):
+    """Every user rates 10-30 random items with ratings 1-5; ``gender`` =
+    u mod 2, ``age`` = u mod 3."""
+    ddir = root / "fair"
+    ddir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    with open(ddir / "fair.inter", "w") as f:
+        f.write("user_id:token\titem_id:token\trating:float\n")
+        for u in range(1, n_users + 1):
+            for i in rng.choice(np.arange(1, n_items + 1), rng.randint(10, 31), replace=False):
+                f.write(f"{u}\t{i}\t{rng.randint(1, 6)}\n")
+    with open(ddir / "fair.user", "w") as f:
+        f.write("user_id:token\tgender:float\tage:float\n")
+        for u in range(1, n_users + 1):
+            f.write(f"{u}\t{u % 2}\t{u % 3}\n")
+    return str(root)
+
+
+def _published(tmp_path, use_gpu, model, extra=None):
+    return Config(model=model, dataset="fair", config_dict={
+        "use_gpu": use_gpu, "data_path": _write_fair_dataset(tmp_path / "data"),
+        "load_col": {"inter": ["user_id", "item_id", "rating"],
+                     "user": ["user_id", "gender", "age"]},
+        "LABEL_FIELD": "label", "threshold": {"rating": 3.0},
+        "checkpoint_dir": str(tmp_path / "saved"), "state": "ERROR", "dropout": 0.0,
+        **(extra or {}),
+    })
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,attrs", [("none", []), ("sm", ["gender", "age"])])
+def test_sampled_device_path_equals_host_path_on_card(card, tmp_path, mode, attrs,
+                                                      monkeypatch):
+    """PFCN_PMF with its published uni100 protocol (12 metrics, top 5): on
+    one list of uni100 batches, the device path (scatter + sort on the card)
+    and the host path (``predict`` on the card, ranking in numpy) give one
+    dict per subset."""
+    monkeypatch.chdir(tmp_path)
+    from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
+    from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
+
+    config = _published(tmp_path, True, "PFCN_PMF", {
+        "filter_mode": mode, "sst_attr_list": attrs or ["gender"], "dis_dropout": 0.0})
+    generator = init_seed(config["seed"], True)
+    train, valid, _ = data_preparation(config, create_dataset(config))
+    model = get_model("PFCN_PMF")(config, train.dataset, generator=generator)
+    with torch.no_grad():  # scores where float32 sigmoid keeps them apart
+        for emb in (model.user_embedding, model.item_embedding):
+            emb.weight.mul_(0.3)
+    trainer = get_trainer(config["MODEL_TYPE"], "PFCN_PMF")(config, model)
+    assert trainer.device.type == "cuda"
+    trainer.eval_collector.data_collect(train)
+    kind = trainer._prepare_eval(valid)
+    np.random.seed(9)
+    batches = list(trainer._macro_batches(valid, kind))
+    trainer.model.eval()
+    for sst in [tuple(attrs)] if attrs else [None]:
+        results = []
+        with torch.no_grad():
+            for path in ("device", "host"):
+                for batch in batches:
+                    if path == "device":
+                        trainer._collect_batch(kind, batch, sst)
+                        assert trainer._last_eval_path == "sampled-fused"
+                    else:
+                        _, scores, pu, pi = trainer._neg_sample_batch_eval(batch, sst)
+                        trainer.eval_collector.eval_batch_collect(scores, batch[0], pu, pi)
+                results.append(trainer.evaluator.evaluate(trainer.eval_collector.get_data_struct()))
+        assert results[0] == results[1]
+        assert len(results[0]) >= 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_name,extra", [
+    ("FOCF", {"fair_objective": "value"}),
+    ("FOCF", {"fair_objective": "nonparity"}),
+    ("NFCF", {}),
+])
+def test_fair_model_losses_on_card_match_cpu(card, tmp_path, model_name, extra, monkeypatch):
+    """FOCF's rating loss + fairness term and NFCF's BCE + ε-DF penalty on
+    one train batch, the same weights on the card and on the CPU: losses
+    within 1e-6 (rel), gradients within 1e-6 (abs), the float32 error of
+    summing in another order."""
+    monkeypatch.chdir(tmp_path)
+    from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
+    from recbole_fairrec_tpu_torch.utils import get_model, init_seed
+
+    losses, grads = [], []
+    for use_gpu in (True, False):
+        config = _published(tmp_path, use_gpu, model_name, extra)
+        init_seed(config["seed"], True)
+        train = data_preparation(config, create_dataset(config))[0]
+        model = get_model(model_name)(config, train.dataset,
+                                      generator=torch.Generator().manual_seed(0))
+        model = model.to(config["device"]).train()
+        np.random.seed(3)
+        batch = next(iter(train))
+        fields = model.loss_batch_fields("calculate_loss")
+        moved = {k: v.to(config["device"]) for k, v in batch.interaction.items() if k in fields}
+        loss = model.calculate_loss(moved)
+        if model_name == "NFCF":  # the finetune stage's penalty, on the same rows
+            out = model.forward(moved["user_id"], moved["item_id"], train=True)
+            loss = loss + model._differential_fairness(moved, out, torch.ones_like(out))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+    for name, g in grads[1].items():
+        assert float((grads[0][name] - g).abs().max()) <= 1e-6, name
