@@ -8,8 +8,10 @@ serves full-sort evaluation of BPR-MF (PFCN_PMF, ``filter_mode: none``,
 ``embedding_size: 64``) at ml-1M scale through the serving entry points
 (``load_data_and_model`` then ``evaluate``), trains the same model on the
 same data through ``run_recbole``, trains the adversarial PFCN family
-(filters, discriminators and their alternation) through ``run_recbole``,
-checks that every path went through the kernels, and holds every kernel
+(filters, discriminators and their alternation), the fair models with
+their published protocol and FairGo (graph propagation, pretrain then
+adversarial finetune) through ``run_recbole``, checks that every path that
+has a kernel went through it, and holds every kernel
 against its plain PyTorch version at the shapes the paths give it. Imports
 nothing of JAX.
 
@@ -43,7 +45,19 @@ Phases, each of which exits non-zero when it fails:
      and PFCN_MLP (sm, the dense path); seconds per epoch kind, per
      validation and per test, and the split of a filter and a discriminator
      step are printed;
-  6. kernels: each kernel against its plain version on the inputs the
+  6. published: PFCN_PMF, FOCF and NFCF with their published YAMLs (uni100,
+     the 12 metrics): the sampled device path against the host path and the
+     card against the CPU, labeled and GAUC evaluations;
+  7. fairgo: FairGo_PMF and FairGo_GCN with their published YAMLs, cut to
+     one pretrain and one finetune epoch, through run_recbole on the card
+     (dense float32 propagation over the ml-1M-scale graph, 9,671 nodes):
+     the passes, both stages' evaluations and the checkpoints (no
+     propagation matrix in them) read back to the same dict; a pretrain, a
+     filter and a discriminator step on the card equal the CPU's; dense
+     propagation equals COO and bfloat16 stays within its bound; seconds
+     per epoch, validation and test, the split of each step kind, and one
+     hop against its bound are printed;
+  8. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
@@ -264,23 +278,28 @@ def serve(data_root, work_dir, extra_cfg=None):
 def _timed_fit(modules):
     """While installed, every pass over the train loader (with its optimizer
     tag and attribute subset), every trained epoch, every validation and
-    every final ``evaluate`` of the port's trainers (the base ``Trainer``'s
-    and ``PFCNTrainer``'s) is timed (host clock, the card synchronised before
-    and after) and the kernels' launch counts are read around each
-    validation and each ``evaluate``. Each validation and ``evaluate`` also
+    every final ``evaluate`` of the port's trainers (the base ``Trainer``'s,
+    ``PFCNTrainer``'s and ``FairGoTrainer``'s) is timed (host clock, the card
+    synchronised before and after) and the kernels' launch counts are read
+    around each validation and each ``evaluate``; an evaluation inside
+    another one (FairGo's two stages, a validation's ``evaluate``) is part of
+    the outer one. Each pass records its loss, and each final ``evaluate``
+    the state of numpy's generator at its start (the sampled negatives draw
+    from it). Each validation and ``evaluate`` also
     records its split: the host's time in the sampled loader (the negative
     draws and the batch assembly), the time in the sampled device path
     (synchronised) and its number of calls, and the loader batches. Yields
     the record; the methods are put back on exit."""
     from recbole_fairrec_tpu_torch.data import NegSampleEvalDataLoader
-    from recbole_fairrec_tpu_torch.trainer import PFCNTrainer, Trainer
+    from recbole_fairrec_tpu_torch.trainer import FairGoTrainer, PFCNTrainer, Trainer
 
     record = {"trainers": [], "epoch_s": [], "examples": [], "valid_s": [],
               "valid_results": [], "valid_launches": [], "valid_paths": [], "valid_split": [],
               "train_epoch_s": [], "train_epoch_losses": [], "test_s": [], "test_launches": [],
-              "test_paths": [], "test_split": [], "passes": []}
+              "test_paths": [], "test_split": [], "test_rng": [], "passes": [],
+              "pass_losses": []}
     counters = {"draws_s": 0.0, "device_s": 0.0, "sampled_calls": 0, "batches": 0}
-    in_valid = []
+    in_eval = []
     originals = {}
 
     def patch(cls, name, wrap):
@@ -297,6 +316,7 @@ def _timed_fit(modules):
             _sync()
             record["epoch_s"].append(time.perf_counter() - t0)
             record["examples"].append(len(train_data.dataset))
+            record["pass_losses"].append(out)
             if len(args) == 3:  # (loss name, attribute subset, optimizer tag)
                 record["passes"].append([args[2], list(args[1] or [])])
             return out
@@ -305,19 +325,19 @@ def _timed_fit(modules):
     def timed_eval(kind):
         def wrap(fn):
             def run(self, *args, **kwargs):
-                if in_valid:  # the base Trainer's validation calls evaluate
+                if in_eval:  # part of an evaluation timed already
                     return fn(self, *args, **kwargs)
                 before = {name: mod.launches for name, mod in modules.items()}
                 split0 = dict(counters)
-                if kind == "valid":
-                    in_valid.append(True)
+                if kind == "test":
+                    record["test_rng"].append(np.random.get_state())
+                in_eval.append(kind)
                 _sync()
                 t0 = time.perf_counter()
                 try:
                     out = fn(self, *args, **kwargs)
                 finally:
-                    if kind == "valid":
-                        in_valid.pop()
+                    in_eval.pop()
                 _sync()
                 record[f"{kind}_s"].append(time.perf_counter() - t0)
                 if kind == "valid":
@@ -367,6 +387,7 @@ def _timed_fit(modules):
     patch(NegSampleEvalDataLoader, "_next_batch_data", timed_draws)
     for cls in (Trainer, PFCNTrainer):
         patch(cls, "_valid_epoch", timed_eval("valid"))
+    for cls in (Trainer, PFCNTrainer, FairGoTrainer):
         patch(cls, "evaluate", timed_eval("test"))
         patch(cls, "_train_epoch", timed_train_epoch)
     try:
@@ -1300,10 +1321,12 @@ def check_step_card_against_cpu(trainer, train_data, cfg, ckpt,
         fail(f"step: parameters differ by {gap} after one step")
 
 
-def _device_busy_ms(fn, calls=20):
-    """Sum of the device time of every CUDA kernel ``fn`` launches, per call
-    (``torch.profiler``): the card's busy time, without its waits."""
-    import torch
+def _device_profile(fn, calls=20):
+    """The device time per call of every kernel, copy and fill ``fn``
+    launches (``torch.profiler``), by name, in ms. The profiler lists each
+    kernel twice, as a device event and again in the self device time of
+    the operator that launched it; only the device events count here."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1312,13 +1335,14 @@ def _device_busy_ms(fn, calls=20):
         for _ in range(calls):
             fn()
         _sync()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        self_us = getattr(ev, "self_device_time_total", None)
-        if self_us is None:
-            self_us = ev.self_cuda_time_total
-        total_us += self_us
-    return total_us / calls / 1e3
+    return {ev.key: ev.self_device_time_total / calls / 1e3 for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+def _device_busy_ms(fn, calls=20):
+    """The card's busy time per call of ``fn``, without its waits: the sum
+    of ``_device_profile``."""
+    return sum(_device_profile(fn, calls).values())
 
 
 def time_step_split(trainer, train_data, card, steps=SPLIT_STEPS):
@@ -1400,9 +1424,464 @@ def time_step_split(trainer, train_data, card, steps=SPLIT_STEPS):
     print(f"train: step split {json.dumps(row)}", flush=True)
 
 
+# ----------------------------------------------------------------- FairGo
+
+FAIRGO_MODELS = ("FairGo_PMF", "FairGo_GCN")
+# the published depth is 600 pretrain epochs; one of each stage here, and
+# epoch 0 of finetune runs both the filter and the discriminator pass
+FAIRGO_DEPTH = {"pretrain_epochs": 1, "epochs": 1}
+FAIRGO_SPLIT_STEPS = 40
+PEAK_BF16_FLOPS = 989e12  # bfloat16 in the tensor cores, dense
+# bound of the bfloat16 hop's norm-relative gap from float32, ~2x the reading
+# of 1.0159e-3 (PERF.md §6, FairGo)
+FAIRGO_BF16_GAP = 2.0 ** -9
+# per step kind, the share of the reached elements that may be within the
+# gradient's error bound, ~2x the largest reading of FairGo_PMF / FairGo_GCN
+# from the seeded initialisation: 3/158,272 and 5/623,008 (pretrain),
+# 21/20,736 (filter), 2,936/17,793 (dis; PERF.md §6, FairGo)
+FAIRGO_MAX_UNHELD = {"pretrain": 4e-5, "filter": 2e-3, "dis": 0.33}
+
+
+def fairgo_config(data_root, work_dir, model, extra=None):
+    """``model`` with its published YAML unchanged (widths, LBA, vs_weights,
+    fair_weight, the uni100 protocol) but for the depth, ``FAIRGO_DEPTH``."""
+    return published_config(data_root, work_dir, model, {**FAIRGO_DEPTH, **(extra or {})})
+
+
+def _fairgo_run(data_root, work_dir, model, modules):
+    """One ``run_recbole`` of ``model``, pretrain then finetune on the card,
+    with the launch counts set to 0 just before and read just after. Checks
+    the trainer (the registry's, every tensor on the card, dense float32
+    propagation), the protocol, the passes (pretrain; then filter and
+    discriminator over the YAML's attribute), the sampled path of both
+    validations and of the test and the ``pretrain-*`` and ``finetune-*``
+    metric families; returns (result, record, trainer, cfg)."""
+    import torch
+
+    from recbole_fairrec_tpu_torch import run_recbole
+
+    cfg = fairgo_config(data_root, work_dir, model)
+    label = f"fairgo {model}"
+    for mod in modules.values():
+        mod.launches = 0
+    with _timed_fit(modules) as rec:
+        t0 = time.perf_counter()
+        result = run_recbole(model=model, dataset=ADV_DATASET, config_dict=cfg)
+        _sync()
+        rec["run_recbole_s"] = time.perf_counter() - t0
+    rec["launches"] = {name: mod.launches for name, mod in modules.items()}
+    if len(rec["trainers"]) != 1:
+        fail(f"{label}: run_recbole trained {len(rec['trainers'])} trainers, expected 1")
+    trainer = rec["trainers"][0]
+    _require_card_trainer(trainer, label, model)
+    _check_protocol(label, trainer.config, model)
+    attrs = list(trainer.config["sst_attr_list"])
+    dense = trainer.model._buffers.get("prop_dense")
+    if dense is None or dense.dtype != torch.float32:
+        fail(f"{label}: propagation is not dense float32 "
+             f"({None if dense is None else dense.dtype})")
+    passes = [["pretrain", []], ["filter", attrs], ["dis", attrs]]
+    if rec["passes"] != passes:
+        fail(f"{label}: the passes were {rec['passes']}, expected {passes}")
+    if not all(math.isfinite(x) and x != 0.0 for x in rec["pass_losses"]):
+        fail(f"{label}: pass losses {rec['pass_losses']}")
+    if rec["train_epoch_losses"] != [tuple(rec["pass_losses"][:0:-1])]:
+        fail(f"{label}: finetune epoch losses {rec['train_epoch_losses']}: not (dis, filter)")
+    if any(rec["launches"].values()):
+        fail(f"{label}: FairGo launched {rec['launches']}")
+    if len(rec["valid_s"]) != 2 or len(rec["test_s"]) != 1:
+        fail(f"{label}: {len(rec['valid_s'])} validations and {len(rec['test_s'])} tests, "
+             "expected one validation per stage and one test")
+    for what, path in zip(["validation", "validation", "test"],
+                          rec["valid_paths"] + rec["test_paths"]):
+        if path != "sampled-fused":
+            fail(f"{label}: a {what} took the path {path!r}")
+    for epoch, res in enumerate(rec["valid_results"]):
+        _check_families(f"{label}: validation {epoch}", res, attrs)
+    if result["best_valid_result"] != rec["valid_results"][1]:
+        fail(f"{label}: best_valid_result is not the finetune validation's result")
+    tests = result["test_result"]
+    for stage in ("pretrain", "finetune"):
+        half = {k[len(stage) + 1:]: v for k, v in tests.items() if k.startswith(stage + "-")}
+        _check_families(f"{label}: test {stage}", half, attrs)
+    if len(tests) != 2 * len(rec["valid_results"][0]):
+        fail(f"{label}: test keys {list(tests)}")
+    return result, rec, trainer, cfg
+
+
+def _check_fairgo_checkpoints(trainer, label):
+    """The pretrain and finetune checkpoints hold the parameters and the
+    optimizers' moments, no propagation matrix: no array of n x n elements
+    and at most 4 x the parameters' bytes + 1 MiB on disk (the matrix alone
+    is n^2 x 4 bytes). Returns the sizes."""
+    from recbole_fairrec_tpu_torch.quick_start import load_checkpoint
+
+    model = trainer.model
+    n = model.n_users + model.n_items
+    params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    limit = 4 * params_bytes + (1 << 20)
+    sizes = {"params_bytes": params_bytes, "matrix_bytes": n * n * 4, "limit": limit}
+
+    def arrays(node):
+        if isinstance(node, np.ndarray):
+            yield node
+        elif isinstance(node, dict):
+            for v in node.values():
+                yield from arrays(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                yield from arrays(v)
+
+    for stage, path in (("pretrain", trainer.saved_pretrain_model_file),
+                        ("finetune", trainer.saved_model_file)):
+        size = os.path.getsize(path)
+        checkpoint = load_checkpoint(path)
+        if checkpoint["model_state"] != {} or checkpoint.get("train_stage") != stage:
+            fail(f"{label}: the {stage} checkpoint has state {list(checkpoint['model_state'])} "
+                 f"and stage {checkpoint.get('train_stage')!r}")
+        if size > limit or any(a.size >= n * n for a in arrays(checkpoint)):
+            fail(f"{label}: the {stage} checkpoint ({size} bytes) holds a propagation matrix")
+        sizes[f"{stage}_bytes"] = size
+    return sizes
+
+
+def _fairgo_read_back(trainer, cfg, result, rec, label, model):
+    """The finetune checkpoint through ``load_data_and_model`` (the pretrain
+    one as ``pretrain_model_file_path``), then ``evaluate`` from numpy's
+    state at the start of run_recbole's test: the same dict."""
+    from recbole_fairrec_tpu_torch import load_data_and_model
+
+    _, _, trainer2, _, train2, _, test2 = load_data_and_model(trainer.saved_model_file, {
+        "log_root": cfg["log_root"],
+        "pretrain_model_file_path": trainer.saved_pretrain_model_file})
+    _require_card_trainer(trainer2, f"{label} read-back", model)
+    if trainer2.model.train_stage != "finetune":
+        fail(f"{label} read-back: the stage is {trainer2.model.train_stage!r}")
+    np.random.set_state(rec["test_rng"][0])
+    back = trainer2.evaluate(test2)
+    if dict(back) != dict(result["test_result"]):
+        fail(f"{label}: the checkpoints read back give {back}, run_recbole gave "
+             f"{result['test_result']}")
+    return trainer2, train2
+
+
+def _fairgo_attrs(trainer):
+    return tuple(trainer.config["sst_attr_list"])
+
+
+FAIRGO_STEPS = (("pretrain", "calculate_loss", "pretrain"),
+                ("finetune", "calculate_loss", "filter"),
+                ("finetune", "calculate_dis_loss", "dis"))
+
+
+def check_fairgo_steps(trainer, train_data, cfg, model, atol=1e-5, loss_rtol=1e-5,
+                       grad_factor=4.0, grad_floor=1e-6, max_unheld=FAIRGO_MAX_UNHELD):
+    """A pretrain step, a filter step and a discriminator step (over the
+    YAML's attributes) on the card and on the CPU from the seeded
+    initialisation (``gcn_dropout`` 0), each step from the same parameters
+    on both (the card's are copied to the CPU before it) and the same
+    batch. The float64 gradient on the CPU is the reference.
+
+    Limits: losses within ``loss_rtol`` (rel; float32 sums over up to
+    9,671 terms per hop in other orders); per stepped tensor the card's
+    largest distance from the float64 gradient at most ``grad_factor``
+    times the CPU's float32 one plus ``grad_floor`` of the tensor's largest
+    float64 gradient (the "error bound"); parameters within ``atol`` (abs),
+    except the elements the loss reaches whose float64 gradient is within
+    the error bound: Adam's first step moves those by up to
+    ``ADAM_STEP_BOUND`` learning rates either way on each device, so they
+    are held within twice that + ``atol``, and at most ``max_unheld[tag]``
+    of the reached elements may be such."""
+    import torch
+
+    from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.utils import get_model
+
+    dataset = train_data.dataset
+    trainers = []
+    for use_gpu in (True, False):
+        config = Config(model=model, dataset=ADV_DATASET,
+                        config_dict={**cfg, "use_gpu": use_gpu, "gcn_dropout": 0.0})
+        built = get_model(model)(config, dataset, generator=torch.Generator().manual_seed(0))
+        trainers.append(type(trainer)(config, built))
+    card, cpu = trainers
+    if card.device.type != "cuda" or cpu.device.type != "cpu":
+        fail(f"fairgo step: trainers on {card.device} and {cpu.device}")
+    _require_card_trainer(card, f"fairgo {model} step", model)
+    model64 = get_model(model)(cpu.config, dataset)
+    sst = _fairgo_attrs(card)
+    interaction = next(iter(train_data))
+    train_data.pr = 0
+    noise_atol = 2 * ADAM_STEP_BOUND * cpu.config["learning_rate"] + atol
+    rows = {}
+    for stage, loss_name, tag in FAIRGO_STEPS:
+        subset = None if stage == "pretrain" else sst
+        fields = card.model.loss_batch_fields(loss_name, subset)
+        batch = card._train_batch(interaction, fields)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+        for m in (card.model, cpu.model, model64):
+            m.train_stage = stage
+        loss64, g64 = _float64_grads(model64, cpu.model.state_dict(), cpu_batch, loss_name,
+                                     subset)
+        loss, grads = _step_capturing_grads(card, dict(batch), loss_name, subset, tag)
+        cpu_loss, cpu_grads = _step_capturing_grads(cpu, cpu_batch, loss_name, subset, tag)
+        if set(grads) != set(cpu_grads) or not grads:
+            fail(f"fairgo {model} {tag} step: gradients of {sorted(grads)} on the card, "
+                 f"{sorted(cpu_grads)} on the CPU")
+        groups = card.model.param_groups()[tag]
+        if any(name.split(".")[0] not in groups for name in grads):
+            fail(f"fairgo {model} {tag} step: gradients outside the group {groups}")
+        cpu_state = cpu.model.state_dict()
+        grad_use, gap, unheld_gap, n_unheld, n_reached = 0.0, 0.0, 0.0, 0, 0
+        for name, value in card.model.state_dict().items():
+            diff = (value.detach().cpu() - cpu_state[name]).abs()
+            unheld = torch.zeros(diff.shape, dtype=torch.bool)
+            if name in grads:
+                ref = g64[name]
+                scale = float(ref.abs().max())
+                cpu_err = float((cpu_grads[name].double() - ref).abs().max())
+                card_err = float((grads[name].double() - ref).abs().max())
+                bound = grad_factor * cpu_err + grad_floor * scale
+                grad_use = max(grad_use, card_err / bound if bound else float(card_err > 0))
+                reached = (ref != 0) | (cpu_grads[name] != 0)
+                unheld = reached & (ref.abs() <= bound)
+                n_reached += int(reached.sum())
+                n_unheld += int(unheld.sum())
+            gap = max(gap, float(diff.where(~unheld, 0.0).max()))
+            unheld_gap = max(unheld_gap, float(diff.where(unheld, 0.0).max()))
+        rows[tag] = {"loss": loss, "cpu_loss": cpu_loss, "float64_loss": loss64,
+                     "gradient_error_of_bound": grad_use, "parameter_gap": gap,
+                     "unheld_elements": n_unheld, "reached_elements": n_reached,
+                     "unheld_share": n_unheld / n_reached, "unheld_gap": unheld_gap}
+        label = f"fairgo {model} {tag} step"
+        if not math.isfinite(loss) or abs(loss - cpu_loss) > loss_rtol * abs(cpu_loss):
+            fail(f"{label}: the card's loss {loss} and the CPU's {cpu_loss} differ")
+        if grad_use > 1.0:
+            fail(f"{label}: the card's gradient error is {grad_use:.3f} times its bound")
+        if gap > atol or unheld_gap > noise_atol or n_unheld > max_unheld[tag] * n_reached:
+            fail(f"{label}: card and CPU differ: {rows[tag]}")
+    print(f"fairgo: {model} steps card vs CPU {json.dumps(rows)}", flush=True)
+
+
+def check_fairgo_propagation(trainer, train_data, cfg, model, card):
+    """On one finetune batch of the read-back trainer (card): one hop through
+    the dense float32 matrix against the COO form, within the float32 bound
+    of each row's sum in another order (2 x degree x 2^-24 x sum |a x|);
+    the discriminator loss of a ``dense_propagation: False`` model (the
+    same weights) within 1e-5 (rel) of the dense model's; a
+    ``propagation_dtype: bfloat16`` model's two hops: each a float32 result,
+    not rounded to bfloat16, within the float32 bound of each element's sum
+    in another order (2 x n x 2^-24 x sum |a x|; the products are exact) of
+    the same hop on the CPU from the same input (bfloat16 operands widened
+    to float32), and within ``FAIRGO_BF16_GAP`` (norm-relative) of the
+    float32 hops; and one filter step of it that gives finite gradients."""
+    import torch
+
+    from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.ops.spmm import propagate
+    from recbole_fairrec_tpu_torch.utils import get_model
+
+    m = trainer.model
+    m.train_stage = "finetune"
+    sst = _fairgo_attrs(trainer)
+    n = m.n_users + m.n_items
+    interaction = next(iter(train_data))
+    train_data.pr = 0
+    fields = m.loss_batch_fields("calculate_dis_loss", sst)
+    batch = trainer._train_batch(interaction, fields)
+    row = {"n": n, "edges": int(m.norm_rows.numel()), "card": card}
+    with torch.no_grad():
+        x = torch.cat(m.forward(sst))
+        dense_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n, dense=m.prop_dense)
+        coo_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n)
+        degree = torch.bincount(m.norm_rows, minlength=n).double()[:, None]
+        bound = 2 * degree * 2.0 ** -24 * (m.prop_dense.abs() @ x.abs()).double()
+        err = (dense_hop - coo_hop).abs().double()
+        row["dense_vs_coo_max_abs"] = float(err.max())
+        row["dense_vs_coo_of_bound"] = float((err / bound.clamp_min(1e-30)).max())
+        if bool((err > bound).any()):
+            fail(f"fairgo propagation: dense and COO hops differ by {float(err.max())}")
+        dense_loss = float(m.calculate_dis_loss(batch, sst_list=sst))
+    state = m.state_dict()
+    others = {}
+    for key, extra in (("coo", {"dense_propagation": False}),
+                       ("bf16", {"propagation_dtype": "bfloat16"})):
+        config = Config(model=model, dataset=ADV_DATASET, config_dict={**cfg, **extra})
+        other = get_model(model)(config, train_data.dataset)
+        other.load_state_dict(state)
+        others[key] = type(trainer)(config, other)
+        _require_card_trainer(others[key], f"fairgo propagation {key}", model)
+        others[key].model.train_stage = "finetune"
+    coo_model, bf16_model = others["coo"].model, others["bf16"].model
+    if "prop_dense" in coo_model._buffers or bf16_model.prop_dense.dtype != torch.bfloat16:
+        fail("fairgo propagation: the COO or bfloat16 model has the wrong matrix")
+    with torch.no_grad():
+        coo_loss = float(coo_model.calculate_dis_loss(batch, sst_list=sst))
+        row["dis_loss_dense"], row["dis_loss_coo"] = dense_loss, coo_loss
+        if abs(dense_loss - coo_loss) > 1e-5 * abs(dense_loss):
+            fail(f"fairgo propagation: dis loss {dense_loss} dense, {coo_loss} COO")
+        dense16 = bf16_model.prop_dense
+        dense16_cpu = dense16.cpu()
+        h32, h16 = x, x
+        gaps, of_bound = [], []
+        for _ in range(m.n_layers):
+            h32 = propagate(h32, None, None, None, n, dense=m.prop_dense)
+            x16 = h16.to(torch.bfloat16)
+            cpu_hop = propagate(h16.cpu(), None, None, None, n, dense=dense16_cpu)
+            h16 = propagate(h16, None, None, None, n, dense=dense16)
+            if h16.dtype != torch.float32 or torch.equal(h16, h16.to(torch.bfloat16).float()):
+                fail(f"fairgo propagation: the bfloat16 hop returns {h16.dtype}, rounded")
+            bound = 2 * n * 2.0 ** -24 * propagate(x16.float().abs(), None, None, None, n,
+                                                   dense=dense16.float().abs())
+            err = (h16 - cpu_hop.to(h16.device)).abs()
+            of_bound.append(float((err / bound.clamp_min(1e-30)).max()))
+            if bool((err > bound).any()):
+                fail(f"fairgo propagation: the bfloat16 hop on the card differs from the "
+                     f"CPU's by {float(err.max())}")
+            gaps.append(float((h16 - h32).norm() / h32.norm()))
+        row["bf16_card_vs_cpu_of_bound"] = of_bound
+        row["bf16_hop_gaps"] = gaps
+        row["bf16_dis_loss"] = float(bf16_model.calculate_dis_loss(batch, sst_list=sst))
+    if not max(gaps) <= FAIRGO_BF16_GAP:
+        fail(f"fairgo propagation: bfloat16 hops part from float32 by {gaps}")
+    t16 = others["bf16"]
+    loss, grads = _step_capturing_grads(t16, dict(batch), "calculate_loss", sst, "filter")
+    row["bf16_filter_loss"] = loss
+    if not math.isfinite(loss) or not grads or \
+            not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        fail(f"fairgo propagation: the bfloat16 filter step gives loss {loss}")
+    print(f"fairgo: propagation {json.dumps(row)}", flush=True)
+
+
+def time_fairgo_step_split(trainer, train_data, card, model, steps=FAIRGO_SPLIT_STEPS):
+    """A pretrain, a filter and a discriminator step, each over ``steps``
+    steps of the real loader: the wall time per step (host clock, the card
+    synchronised at the end), the host's time in the loader, the copy and
+    ``_train_step``, and the card's busy time per step from the profiler on
+    one batch (``time_adversarial_step_split``'s way)."""
+    m = trainer.model
+    sst = _fairgo_attrs(trainer)
+    row = {"model": model, "steps": steps, "card": card}
+    m.train()
+    for stage, loss_name, tag in FAIRGO_STEPS:
+        m.train_stage = stage
+        subset = None if stage == "pretrain" else sst
+        optimizer = trainer._tx_by_tag(tag)
+        fields = m.loss_batch_fields(loss_name, subset)
+        it = iter(train_data)
+        for _ in range(3):  # warm-up
+            trainer._train_step(trainer._train_batch(next(it), fields), loss_name, subset,
+                                optimizer)
+        _sync()
+        host = 0.0
+        t_start = time.perf_counter()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            batch = trainer._train_batch(next(it), fields)
+            loss = trainer._train_step(batch, loss_name, subset, optimizer)
+            host += time.perf_counter() - t0
+        _sync()
+        wall_ms = (time.perf_counter() - t_start) / steps * 1e3
+        train_data.pr = 0
+        if not math.isfinite(float(loss)):
+            fail(f"fairgo step split: the {tag} loss is not finite")
+        kernels = _device_profile(
+            lambda: trainer._train_step(dict(batch), loss_name, subset, optimizer), calls=10)
+        busy = sum(kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        row[tag] = {"batch": int(batch[m.USER_ID].shape[0]), "wall_ms_per_step": wall_ms,
+                    "host_ms_per_step": host / steps * 1e3, "device_busy_ms_per_step": busy,
+                    "device_idle_share": 1.0 - busy / wall_ms, "kernels": len(kernels),
+                    "top_kernels_ms": [[name[:60], ms] for name, ms in top]}
+    print(f"fairgo: step split {json.dumps(row)}", flush=True)
+
+
+def time_fairgo_hop(model, card):
+    """One propagation hop of ``model``'s matrix over a seeded [n, d] table
+    through the port's ``propagate``: the dense float32 product (cuBLAS,
+    TF32 off) and the bfloat16 one (``torch.mm(..., out_dtype=float32)``
+    after casting the table), each against its bound: the larger of its
+    operations over the card's peak for their type and its bytes (each
+    input read once, the output written once) over the memory rate."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.ops.spmm import propagate
+
+    n = model.n_users + model.n_items
+    d = model.embedding_size
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    ops = 2.0 * n * n * d
+    routes = {
+        "f32": (model.prop_dense, ops / PEAK_F32_FLOPS,
+                (4.0 * n * n + 8.0 * n * d) / PEAK_BYTES),
+        "bf16": (model.prop_dense.to(torch.bfloat16), ops / PEAK_BF16_FLOPS,
+                 (2.0 * n * n + 8.0 * n * d) / PEAK_BYTES),
+    }
+    row = {"n": n, "d": d, "card": card}
+    for name, (matrix, ops_s, bytes_s) in routes.items():
+        def hop(matrix=matrix):
+            return propagate(x, None, None, None, n, dense=matrix)
+        ms = _median_ms(hop)
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        row[name] = {"ms": ms, "ms_back_to_back": _median_ms(hop, calls=10),
+                     "bound_ms": bound_ms,
+                     "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+                     "share_of_bound": bound_ms / ms}
+    print(f"fairgo: hop {json.dumps(row)}", flush=True)
+
+
+def fairgo(data_root, work_dir, card):
+    """Phase 7: FairGo_PMF and FairGo_GCN with their published YAMLs, one
+    pretrain and one finetune epoch each, through ``run_recbole`` on the
+    card (dense float32 propagation): the checks of ``_fairgo_run``, the
+    checkpoints' contents, the checkpoints read back, one step of each kind
+    on the card against the CPU, the propagation forms (FairGo_PMF) and the
+    timings: seconds per pretrain epoch, finetune epoch, validation and
+    test, the split of each step kind, and one hop against its bound.
+    Returns the kernels' launch counts of its runs (FairGo launches none)."""
+    import torch
+
+    modules = {k["name"]: _kernel_module(k) for k in KERNELS}
+    launches = dict.fromkeys(modules, 0)
+    hop_model = None
+    for model in FAIRGO_MODELS:
+        label = f"fairgo {model}"
+        result, rec, trainer, cfg = _fairgo_run(data_root, work_dir, model, modules)
+        for name, count in rec["launches"].items():
+            launches[name] += count
+        sizes = _check_fairgo_checkpoints(trainer, label)
+        pretrain_s = [s for s, p in zip(rec["epoch_s"], rec["passes"]) if p[0] == "pretrain"]
+        kinds = ("pretrain", "filter", "dis")
+        row = _published_row(model, rec, card, pretrain_epoch_s=pretrain_s,
+                             finetune_epoch_s=rec["train_epoch_s"],
+                             pass_s=dict(zip(kinds, rec["epoch_s"])),
+                             pass_losses=dict(zip(kinds, rec["pass_losses"])),
+                             checkpoints=sizes)
+        print(f"fairgo: epochs {json.dumps(row)}", flush=True)
+        print(f"fairgo: {model} test {result['test_result']}", flush=True)
+        trainer2, train2 = _fairgo_read_back(trainer, cfg, result, rec, label, model)
+        print(f"fairgo: {model} checkpoints read back give the same test dict", flush=True)
+        del trainer
+        check_fairgo_steps(trainer2, train2, cfg, model)
+        if model == "FairGo_PMF":
+            check_fairgo_propagation(trainer2, train2, cfg, model, card)
+            hop_model = trainer2.model
+        time_fairgo_step_split(trainer2, train2, card, model)
+        del trainer2
+        torch.cuda.empty_cache()
+    time_fairgo_hop(hop_model, card)
+    return launches
+
+
 def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
-    """The registry's trainer for ``model``, on the card: a configuration
-    that lands on the CPU would pass every later check without a kernel."""
+    """The registry's trainer for ``model``, on the card with every
+    parameter and buffer (FairGo's propagation matrices included): a
+    configuration that lands on the CPU would pass every later check
+    without a kernel."""
+    import itertools
+
     from recbole_fairrec_tpu_torch.utils import get_trainer
 
     cls = get_trainer(trainer.config["MODEL_TYPE"], model)
@@ -1410,8 +1889,10 @@ def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
         fail(f"{phase}: the trainer is a {type(trainer).__name__}, not a {cls.__name__}")
     if trainer.device.type != "cuda":
         fail(f"{phase}: the trainer is on {trainer.device}, not on the card")
-    if next(trainer.model.parameters()).device.type != "cuda":
-        fail(f"{phase}: the model's parameters are not on the card")
+    for name, tensor in itertools.chain(trainer.model.named_parameters(),
+                                        trainer.model.named_buffers()):
+        if tensor.device.type != "cuda":
+            fail(f"{phase}: the model's {name} is on {tensor.device}, not on the card")
 
 
 def _sync():
@@ -1599,7 +2080,12 @@ def main():
     published_launches = published(data_root, os.path.join(work, "published"), card)
     print(f"published: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 7: every kernel against its plain version
+    # phase 7: FairGo, pretrain then adversarial finetune
+    t0 = time.perf_counter()
+    fairgo_launches = fairgo(data_root, os.path.join(work, "fairgo"), card)
+    print(f"fairgo: phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 8: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     U, T, k_prime = serving_inputs(trainer, test_data)
     gen = torch.Generator().manual_seed(2020)
@@ -1619,12 +2105,14 @@ def main():
     rows.append(check_fused_topk(mod, Un, Tn, k_prime, "d30", card))
 
     main_row = rows[0]
+    by_path = {k["name"]: {"serve": launches[k["name"]], "train": train_launches[k["name"]],
+                           **adv_launches, "published": published_launches[k["name"]],
+                           "fairgo": fairgo_launches[k["name"]]} for k in KERNELS}
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
-        "launches": launches[k["name"]] + train_launches[k["name"]] + sum(adv_launches.values()),
-        "launches_by_path": {"serve": launches[k["name"]], "train": train_launches[k["name"]],
-                             **adv_launches, "published": published_launches[k["name"]]},
+        "launches": sum(by_path[k["name"]].values()),
+        "launches_by_path": by_path[k["name"]],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

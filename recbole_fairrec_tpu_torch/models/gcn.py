@@ -1,0 +1,48 @@
+"""A minimal GCN (Kipf & Welling), FairGo_GCN's backbone.
+
+Counterpart of ``recbole_fairrec_tpu/models/gcn.py``, with torch_geometric's
+``GCN`` / ``GCNConv`` semantics:
+
+* per layer x' = Â (x W) + b, with Â = D̃^-½ (A + I) D̃^-½ (rating-weighted,
+  ``ops.spmm.build_gcn_norm_coo``);
+* widths in → hidden → … → out over ``num_layers`` convolutions;
+* activation and dropout BETWEEN layers, not after the last;
+* Glorot-uniform weights, zero biases.
+
+The state dict is the JAX package's ``gcn`` tree: ``convs.<i>.w`` ``[in,
+out]`` and ``convs.<i>.b``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.spmm import propagate
+from .layers import Linear, apply_activation
+
+
+class GCN(nn.Module):
+    def __init__(self, in_channels, hidden_channels, out_channels, num_layers, generator):
+        super().__init__()
+        sizes = [in_channels] + [hidden_channels] * max(num_layers - 1, 0) + [out_channels]
+        self.convs = nn.ModuleList(
+            Linear(fan_in, fan_out, "xavier_uniform", generator)
+            for fan_in, fan_out in zip(sizes[:-1], sizes[1:])
+        )
+
+    def forward(self, x, rows, cols, vals, act="relu", dropout=0.0, train=False,
+                generator=None, dense=None):
+        """The convolutions over ``x [n, in]`` with Â as COO arrays (or
+        ``dense``); dropout masks (train only) draw from ``generator``."""
+        n = x.shape[0]
+        keep = 1.0 - dropout
+        for i, conv in enumerate(self.convs):
+            x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense) + conv.b
+            if i < len(self.convs) - 1:
+                x = apply_activation(act, x)
+                if train and dropout > 0.0:
+                    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                    x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+        return x

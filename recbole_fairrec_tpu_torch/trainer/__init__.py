@@ -1,5 +1,8 @@
 from .trainer import AbstractTrainer, Trainer
 from .adversarial import (
+    FairGo_GCNTrainer,
+    FairGo_PMFTrainer,
+    FairGoTrainer,
     PFCN_BiasedMFTrainer,
     PFCN_DMFTrainer,
     PFCN_MLPTrainer,
@@ -8,4 +11,5 @@ from .adversarial import (
 )
 
 __all__ = ["AbstractTrainer", "Trainer", "PFCNTrainer", "PFCN_PMFTrainer", "PFCN_MLPTrainer",
-           "PFCN_DMFTrainer", "PFCN_BiasedMFTrainer"]
+           "PFCN_DMFTrainer", "PFCN_BiasedMFTrainer", "FairGoTrainer", "FairGo_PMFTrainer",
+           "FairGo_GCNTrainer"]

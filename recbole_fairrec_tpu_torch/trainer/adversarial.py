@@ -1,7 +1,7 @@
-"""Trainers of the adversarial PFCN family.
+"""Adversarial trainers: the PFCN family (filters against discriminators)
+and FairGo (pretrain, then adversarial finetune).
 
-Counterpart of the ``PFCNTrainer`` half of
-``recbole_fairrec_tpu/trainer/adversarial.py``:
+Counterpart of ``recbole_fairrec_tpu/trainer/adversarial.py``. PFCN:
 
 * training: each epoch draws a random non-empty subset of the sensitive
   attributes (numpy's global generator, as the JAX package draws it, so
@@ -20,7 +20,26 @@ Counterpart of the ``PFCNTrainer`` half of
   without filters); ``save_sst_embed`` exports the user representations per
   subset of up to three attributes.
 
-The FairGo trainers are not ported yet.
+FairGo (``FairGoTrainer``):
+
+* the stage comes from the config: ``pretrain_model_file_path`` loads that
+  checkpoint and finetunes, ``load_pretrain_weight`` finetunes from the
+  dataset's preloaded tables, otherwise ``fit`` first pretrains the backbone
+  for ``pretrain_epochs`` (the ``pretrain`` optimizer), saves
+  ``<model>-<dataset>-pretrain.pth``, reloads it and resets the counters,
+  then finetunes: every ``train_epoch_interval``-th epoch a filter pass
+  (loss = MSE − fair_weight · discriminator loss, the ``filter`` optimizer),
+  every epoch a discriminator pass (the ``dis`` optimizer); ``_train_epoch``
+  returns ``(dis_loss, filter_loss)``, the reverse of PFCN's order;
+* three Adam instances over disjoint groups (``model.param_groups()``); a
+  step computes only its group's gradients (``Trainer._train_step``), so a
+  discriminator step does not backprop through the propagation hops into
+  the filters;
+* ``evaluate`` reports ``pretrain-*`` (from the pretrain checkpoint) and
+  ``finetune-*`` metrics (from the best finetune checkpoint);
+* checkpoints carry ``optimizer_filter``, ``optimizer_dis`` and
+  ``train_stage``; ``save_sst_embed`` writes the pretrained users beside
+  the pretrain checkpoint and the finetuned ones at the end.
 """
 
 from __future__ import annotations
@@ -28,11 +47,13 @@ from __future__ import annotations
 import itertools
 import os
 import pickle
+from time import time
 
 import numpy as np
 import torch
 
-from ..utils import calculate_valid_score
+from ..evaluator import Collector, Evaluator
+from ..utils import calculate_valid_score, dict2str, early_stopping, set_color
 from .trainer import Trainer
 
 
@@ -189,6 +210,213 @@ class PFCNTrainer(Trainer):
             stored = self.model.get_sst_embed(user_features, sst_list)
             with open(os.path.join(self.checkpoint_dir, fname), "wb") as f:
                 pickle.dump(stored, f)
+
+
+class FairGoTrainer(Trainer):
+    """Two-stage pretrain → adversarial-finetune trainer; see the module
+    doc."""
+
+    def __init__(self, config, model):
+        super().__init__(config, model)
+        self.train_epoch_interval = config["train_epoch_interval"]
+        self.sst_attrs = list(config["sst_attr_list"])
+        self.load_pretrain_weight = config["load_pretrain_weight"]
+        groups = self.model.param_groups()
+        self.tx_pretrain = self._masked_tx(groups["pretrain"])
+        self.tx_filter = self._masked_tx(groups["filter"])
+        self.tx_dis = self._masked_tx(groups["dis"])
+        self.saved_pretrain_model_file = config["pretrain_model_file_path"]
+        if self.saved_pretrain_model_file is not None:
+            from ..quick_start import load_checkpoint
+
+            self._load_params_from_checkpoint(load_checkpoint(self.saved_pretrain_model_file))
+            self.logger.info("Loading pretrain model structure and parameters from "
+                             f"{self.saved_pretrain_model_file}")
+            self.model.train_stage = "finetune"
+        elif self.load_pretrain_weight:
+            self.model.train_stage = "finetune"
+        else:
+            self.model.train_stage = "pretrain"
+            self.pretrain_epochs = config["pretrain_epochs"]
+        fname = "{}-{}_embed-[{}].pth".format(
+            config["model"], config["aggr_method"], "_".join(self.sst_attrs))
+        self.saved_sst_embed_file = os.path.join(self.checkpoint_dir, fname)
+
+    def _tx_by_tag(self, tag):
+        return {"pretrain": self.tx_pretrain, "filter": self.tx_filter,
+                "dis": self.tx_dis}.get(tag, self.optimizer)
+
+    # ------------------------------------------------------------------ fit
+
+    def reset_params(self):
+        """Reset the counters between the stages and switch to finetune."""
+        config = self.config
+        self.epochs = config["epochs"]
+        self.eval_step = min(config["eval_step"], self.epochs)
+        self.start_epoch = 0
+        self.cur_step = 0
+        self.best_valid_score = -np.inf if self.valid_metric_bigger else np.inf
+        self.best_valid_result = None
+        self.train_loss_dict = {}
+        self.eval_collector = Collector(config)
+        self.evaluator = Evaluator(config)
+        self.item_tensor = None
+        self.tot_item_num = None
+        self.model.train_stage = "finetune"
+
+    def fit(self, train_data, valid_data=None, verbose=True, saved=True, show_progress=False,
+            callback_fn=None):
+        if self.model.train_stage == "pretrain":
+            self.pretrain(train_data, valid_data, verbose, saved, show_progress)
+            self.reset_params()
+        elif self.model.train_stage != "finetune":
+            raise ValueError("Please make sure that the 'train_stage' is 'pretrain' or 'finetune'!")
+        return super().fit(train_data, valid_data, verbose, saved, show_progress, callback_fn)
+
+    def save_pretrained_model(self, saved_model_file):
+        payload = self._checkpoint_payload(-1)
+        payload["optimizer"] = self._optimizer_payload(self.tx_pretrain)
+        with open(saved_model_file, "wb") as f:
+            pickle.dump(payload, f)
+        self._pretrain_saved = True
+
+    def pretrain(self, train_data, valid_data, verbose=True, saved=True, show_progress=False):
+        """Train the backbone for ``pretrain_epochs`` with early stopping on
+        the validation, saving the best to ``<model>-<dataset>-pretrain.pth``;
+        then reload it (with ``saved=False`` nothing is written and the
+        current parameters go on, with a warning) and, under
+        ``save_sst_embed``, export the pretrained users."""
+        from ..quick_start import load_checkpoint
+
+        prefix = os.path.join(self.checkpoint_dir,
+                              f'{self.config["model"]}-{self.config["dataset"]}')
+        self.saved_pretrain_model_file = f"{prefix}-pretrain.pth"
+        self.saved_pretrain_sst_file = f"{prefix}-pretrain_embed[none].pth"
+        self._pretrain_saved = False
+        self.eval_step = min(self.config["eval_step"], self.pretrain_epochs)
+        self.logger.info(set_color("Model Pretrain", "yellow"))
+        self.eval_collector.data_collect(train_data)
+
+        for epoch_idx in range(self.start_epoch, self.pretrain_epochs):
+            training_start_time = time()
+            train_loss = self._run_epoch(train_data, "calculate_loss", None, "pretrain")
+            self.train_loss_dict[epoch_idx] = train_loss
+            if verbose:
+                self.logger.info(self._generate_train_loss_output(
+                    epoch_idx, training_start_time, time(), train_loss))
+            if self.eval_step <= 0 or not valid_data:
+                if saved:
+                    self.save_pretrained_model(self.saved_pretrain_model_file)
+                continue
+            if (epoch_idx + 1) % self.eval_step == 0:
+                valid_score, valid_result = self._valid_epoch(valid_data,
+                                                              show_progress=show_progress)
+                self.best_valid_score, self.cur_step, stop_flag, update_flag = early_stopping(
+                    valid_score, self.best_valid_score, self.cur_step,
+                    max_step=self.stopping_step, bigger=self.valid_metric_bigger,
+                )
+                if verbose:
+                    self.logger.info(set_color(f"pretrain epoch {epoch_idx} evaluating", "green")
+                                     + f" [valid_score: {valid_score:f}]")
+                    self.logger.info(set_color("valid result", "blue") + ": \n"
+                                     + dict2str(valid_result))
+                if update_flag:
+                    if saved:
+                        self.save_pretrained_model(self.saved_pretrain_model_file)
+                    self.best_valid_result = valid_result
+                if stop_flag:
+                    if verbose:
+                        self.logger.info("Finished pretraining, best eval result in epoch %d"
+                                         % (epoch_idx - self.cur_step * self.eval_step))
+                    break
+
+        if self._pretrain_saved:
+            self._load_params_from_checkpoint(load_checkpoint(self.saved_pretrain_model_file))
+        else:
+            # the reference reloads a checkpoint it never saved here
+            self.logger.warning("pretrain ran with saved=False; finetuning from CURRENT "
+                                "params, not best-valid.")
+        if self.config["save_sst_embed"]:
+            self._save_sst_embed_direct(train_data, self.saved_pretrain_sst_file)
+        return self.best_valid_score, self.best_valid_result
+
+    def _train_epoch(self, train_data, epoch_idx, loss_func=None, show_progress=False):
+        filter_loss = 0.0
+        sst_list = _draw_sst_mask(self.sst_attrs)
+        if epoch_idx % self.train_epoch_interval == 0:
+            self.logger.info("Train Filter")
+            filter_loss = self._run_epoch(train_data, "calculate_loss", sst_list, "filter")
+        self.logger.info("Train Discriminator")
+        dis_loss = self._run_epoch(train_data, "calculate_dis_loss", sst_list, "dis")
+        return dis_loss, filter_loss
+
+    # ------------------------------------------------------------ evaluation
+
+    def evaluate(self, eval_data, load_best_model=True, model_file=None, show_progress=False):
+        """With ``load_best_model``: ``pretrain-*`` metrics from the pretrain
+        checkpoint (unless the run finetunes preloaded tables), then
+        ``finetune-*`` metrics from ``model_file`` or the best finetune
+        checkpoint. Without: one evaluation of the current parameters."""
+        if not eval_data:
+            return
+        if not load_best_model:
+            return super().evaluate(eval_data, show_progress=show_progress)
+        from ..quick_start import load_checkpoint
+
+        result = {}
+        if not self.load_pretrain_weight:
+            if self.saved_pretrain_model_file is None:
+                raise ValueError("no pretrain checkpoint to evaluate: run fit, or set "
+                                 "pretrain_model_file_path")
+            self._load_params_from_checkpoint(load_checkpoint(self.saved_pretrain_model_file))
+            self.model.train_stage = "pretrain"
+            self.logger.info("Loading pretrain model structure and parameters from "
+                             f"{self.saved_pretrain_model_file}")
+            for key, value in super().evaluate(eval_data).items():
+                result[f"pretrain-{key}"] = value
+        checkpoint_file = model_file or self.saved_model_file
+        self._load_params_from_checkpoint(load_checkpoint(checkpoint_file))
+        self.model.train_stage = "finetune"
+        self.logger.info(f"Loading model structure and parameters from {checkpoint_file}")
+        for key, value in super().evaluate(eval_data).items():
+            result[f"finetune-{key}"] = value
+        return result
+
+    # ----------------------------------------------------------- checkpoints
+
+    def _checkpoint_payload(self, epoch):
+        payload = super()._checkpoint_payload(epoch)
+        payload["optimizer_filter"] = self._optimizer_payload(self.tx_filter)
+        payload["optimizer_dis"] = self._optimizer_payload(self.tx_dis)
+        payload["train_stage"] = self.model.train_stage
+        return payload
+
+    def _load_optimizers(self, checkpoint):
+        """On resume: the filter and discriminator optimizers (from the
+        port's payloads or the JAX package's masked optax states) and the
+        checkpoint's stage, as the JAX package's FairGo trainer resumes."""
+        self._load_optimizer_payload(self.tx_filter, checkpoint["optimizer_filter"])
+        self._load_optimizer_payload(self.tx_dis, checkpoint["optimizer_dis"])
+        if checkpoint.get("train_stage"):
+            self.model.train_stage = checkpoint["train_stage"]
+
+    def _save_sst_embed_direct(self, data, saved_sst_embed_file=None):
+        """Export the users' representations with the CURRENT parameters."""
+        user_features = data.dataset.get_user_feature()[1:]
+        stored = self.model.get_sst_embed(user_features, tuple(self.sst_attrs))
+        with open(saved_sst_embed_file or self.saved_sst_embed_file, "wb") as f:
+            pickle.dump(stored, f)
+
+    def _save_sst_embed(self, data):
+        self._save_sst_embed_direct(data)
+
+
+class FairGo_PMFTrainer(FairGoTrainer):
+    pass
+
+
+class FairGo_GCNTrainer(FairGoTrainer):
+    pass
 
 
 class PFCN_PMFTrainer(PFCNTrainer):

@@ -7,9 +7,9 @@ and evaluation (eval macro-batching, the device and host paths,
 
 Training. One step is ``zero_grad`` of the whole model → device negatives
 when the loader runs in ``device_neg_sampling`` mode → the model's loss →
-``backward`` → a zero gradient for each of the optimizer's parameters that
-the loss did not reach → gradient clipping over the optimizer's parameters →
-the optimizer's step. Every learner follows the JAX package's
+the gradients of the optimizer's parameters alone → a zero gradient for
+each of them that the loss did not reach → gradient clipping over the
+optimizer's parameters → the optimizer's step. Every learner follows the JAX package's
 update rule (its optax chain), not PyTorch's default where the two differ;
 see ``_build_optimizer`` and ``trainer/optim.py``. Train batches are not
 padded and carry no ``__weight__``: static shapes are XLA's need, and the
@@ -27,8 +27,9 @@ Evaluation takes the JAX package's paths (``_collect_batch``):
 * full-sort, streaming (``streaming_eval: True``, monotone models only): the
   model's retrieval embeddings go through ``ops.fused_topk.fused_topk_scores``
   for k' = k + max_history + 1 candidates — the hand-written CUDA kernel on a
-  card, its plain version on the CPU — and PAD/history are filtered on the
-  host;
+  card, its plain version on the CPU; under ``use_pallas: False`` the plain
+  tiled ``ops.topk.streaming_topk_scores`` on the CPU, refused on the card
+  — and PAD/history are filtered on the host;
 * sampled (``uni100`` / ``pop100``): ``_collect_sampled_fused`` rebuilds the
   row lanes on the device from per-user counts, runs ``predict`` and
   ``ops.eval_fused.sampled_topk_from_scores``;
@@ -283,18 +284,22 @@ class Trainer(AbstractTrainer):
         """One optimizer step on ``batch``; returns the loss (a detached
         scalar on the device, not read here).
 
-        The gradients of the whole model are zeroed first: a loss may reach
-        parameters outside ``optimizer`` (the filter step's loss reaches the
-        discriminators), which another optimizer steps later. A parameter of
-        ``optimizer`` that the loss does not reach (a filter of another
-        subset) gets a zero gradient, so its update rule still runs — moments
-        decay, weight decay applies, the step count advances — as the JAX
-        package's masked optax chain does."""
+        Only the gradients of ``optimizer``'s parameters are computed
+        (``torch.autograd.grad``), and the other parameters' are cleared: a
+        loss may reach parameters outside ``optimizer`` (the PFCN filter
+        step's loss reaches the discriminators; FairGo's discriminator loss
+        reaches the filters through the propagation hops), which another
+        optimizer steps later, and backprop does no work for them. A
+        parameter of ``optimizer`` that the loss does not reach (a filter of
+        another subset) gets a zero gradient, so its update rule still runs —
+        moments decay, weight decay applies, the step count advances — as the
+        JAX package's masked optax chain does."""
         self.model.zero_grad(set_to_none=True)
         batch = self._inject_negatives(batch, loss_name)
         loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
-        loss.backward()
         params = [p for group in optimizer.param_groups for p in group["params"]]
+        for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
+            p.grad = g
         missing = [p for p in params if p.grad is None]
         if missing:  # views of one zero buffer: one allocation, not one per parameter
             flat = torch.zeros(sum(p.numel() for p in missing), dtype=missing[0].dtype,
@@ -379,7 +384,7 @@ class Trainer(AbstractTrainer):
         package's); the model families' trainers override this."""
         raise NotImplementedError(
             "save_sst_embed: the base Trainer exports no embeddings; PFCNTrainer "
-            "does (filter_mode: none), the FairGo trainers are not ported yet"
+            "(filter_mode: none included) and the FairGo trainers do"
         )
 
     def _profiled_epoch(self, profile_dir, train_data, epoch_idx, show_progress):
@@ -891,12 +896,21 @@ class Trainer(AbstractTrainer):
 
     def _collect_full_sort_streaming(self, batched_data, sst_list=None):
         """Retrieval-form eval: never materializes [B, |I|]. Retrieves
-        k' = k + max_history + 1 candidates with the fused top-k, then
-        filters PAD + history and builds collector payloads on the host.
-        Exact for models whose full-sort score is a strictly monotone
-        transform of the retrieval dot product."""
+        k' = k + max_history + 1 candidates with the fused top-k (on the
+        CPU under ``use_pallas: False``, the plain tiled
+        ``streaming_topk_scores``; the card has no plain path and refuses
+        the key), then filters PAD + history and builds collector payloads
+        on the host. Exact for models whose full-sort score is a strictly
+        monotone transform of the retrieval dot product."""
         from ..ops.fused_topk import fused_topk_scores
+        from ..ops.topk import streaming_topk_scores
 
+        if self.config["use_pallas"] is False and self.device.type == "cuda":
+            raise NotImplementedError(
+                "use_pallas: False on the card: streaming evaluation there runs the "
+                "fused_topk CUDA kernel and has no plain path; leave use_pallas at True, "
+                "or take the dense path (streaming_eval: False)"
+            )
         interaction, history_index, positive_u, positive_i = batched_data
         B = len(interaction)
         pad_to = max(getattr(self, "_full_sort_pad", None) or B, _bucket(B, 512))
@@ -905,12 +919,16 @@ class Trainer(AbstractTrainer):
 
         max_k = max(self.config["topk"])
         k_prime = getattr(self, "_stream_kprime", None) or (max_k + 1)
-        _, cand_i = fused_topk_scores(
-            user_repr.contiguous(), item_table.contiguous(), k_prime
-        )
-        self._last_eval_path = (
-            "streaming-kernel" if user_repr.device.type == "cuda" else "streaming"
-        )
+        if self.config["use_pallas"] is False:
+            _, cand_i = streaming_topk_scores(user_repr, item_table, k_prime)
+            self._last_eval_path = "streaming"
+        else:
+            _, cand_i = fused_topk_scores(
+                user_repr.contiguous(), item_table.contiguous(), k_prime
+            )
+            self._last_eval_path = (
+                "streaming-kernel" if user_repr.device.type == "cuda" else "streaming"
+            )
         cand_i = cand_i[:B].cpu().numpy()
 
         forbidden = (cand_i == 0) | (cand_i >= self.tot_item_num)

@@ -10,6 +10,11 @@ with dots: ``filters.f1.linear.0.w`` is ``params["filters"]["f1"]["linear"]
 array ``<name>``. Linear weights need no transpose: the port stores them
 ``[in, out]``, as the JAX package does (``models/layers.py``).
 
+A model's non-persistent buffers (FairGo's propagation matrices, derived
+from the data) are in neither direction: the JAX package keeps them in its
+``state`` at run time (``prop_dense``, ``gcn_dense``) and strips them from
+its checkpoints, and ``load_jax_params`` skips them.
+
 ``load_jax_params`` fills a port model from such trees, ``to_jax_params`` /
 ``to_jax_state`` write them (the port's checkpoints store both in this
 layout, so the JAX package's trainer loads them), and ``load_jax_opt_state``
@@ -76,12 +81,14 @@ def load_jax_params(model, params, state=None):
     shape is checked; a key left over on either side raises (a model
     without BatchNorm takes an empty or absent ``state``)."""
     own = model.state_dict()
+    derived = {name for name, _ in model.named_buffers()} - set(own)
     tables = _tables(model)
     by_jax_name = {_jax_name(name, tables): name for name in own}
     flat = {}
     for tree in (params, state or {}):
         for name, value in _flatten(tree).items():
-            flat[by_jax_name.get(name, name)] = value
+            if name not in derived:
+                flat[by_jax_name.get(name, name)] = value
     missing = sorted(set(own) - set(flat))
     unexpected = sorted(set(flat) - set(own))
     if missing or unexpected:
@@ -117,9 +124,10 @@ def to_jax_params(model):
 
 
 def to_jax_state(model):
-    """``model``'s buffers (the BatchNorm running statistics) as the JAX
-    package's ``state`` tree; ``{}`` for a model without any."""
-    return _tree(model, model.named_buffers())
+    """``model``'s persistent buffers (the BatchNorm running statistics) as
+    the JAX package's ``state`` tree; ``{}`` for a model without any."""
+    own = model.state_dict()
+    return _tree(model, [(name, b) for name, b in model.named_buffers() if name in own])
 
 
 # optax states that hold numbers, by class name (the state arrives either

@@ -4,8 +4,7 @@ Counterpart of ``recbole_fairrec_tpu/utils/registry.py``: models resolve by
 importing ``models.<name.lower()>`` and fetching the class of that name;
 trainers resolve ``<ModelName>Trainer`` (``PFCN_PMFTrainer`` for PFCN_PMF)
 with a fallback to the base ``Trainer`` (FOCF and NFCF train with it, as
-in the JAX package). The FairGo models, which need graph propagation, are
-not ported yet and raise ``NotImplementedError`` by name.
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -14,7 +13,6 @@ import importlib
 
 _MODEL_MODULE_ROOT = "recbole_fairrec_tpu_torch.models"
 _TRAINER_MODULE = "recbole_fairrec_tpu_torch.trainer"
-_NOT_PORTED = ("FairGo_PMF", "FairGo_GCN")
 
 
 def get_model(model_name: str):
@@ -22,13 +20,7 @@ def get_model(model_name: str):
 
     Raises:
         ValueError: when the port has no model of that name.
-        NotImplementedError: for a model of the JAX package not ported yet.
     """
-    if model_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} (graph propagation, the FairGo trainer) is not ported yet; "
-            "see ROADMAP Queue A"
-        )
     module_path = f"{_MODEL_MODULE_ROOT}.{model_name.lower()}"
     try:
         module = importlib.import_module(module_path)

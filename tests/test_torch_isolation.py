@@ -86,7 +86,8 @@ def test_new_training_modules_are_checked():
             "models/layers.py", "models/pfcn_base.py", "models/pfcn_mlp.py",
             "models/pfcn_dmf.py", "models/pfcn_biasedmf.py", "utils/jax_params.py",
             "models/focf.py", "models/nfcf.py", "data/dataloader.py", "data/utils.py",
-            "ops/eval_fused.py"} <= rel
+            "ops/eval_fused.py", "ops/spmm.py", "models/gcn.py", "models/fairgo_base.py",
+            "models/fairgo_pmf.py", "models/fairgo_gcn.py"} <= rel
 
 
 def test_kernel_sweep_imports_no_jax():
@@ -177,6 +178,40 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_FAIRGO_SCRIPT = r"""
+import sys
+for blocked in ("jax", "jaxlib", "optax", "recbole_fairrec_tpu"):
+    sys.modules[blocked] = None  # importing any of them raises ImportError
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from recbole_fairrec_tpu_torch import load_data_and_model, run_recbole
+work = sys.argv[2]
+root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500,
+                                name=chip_smoke.ADV_DATASET, attributes=True)
+for model in chip_smoke.FAIRGO_MODELS:
+    cfg = chip_smoke.fairgo_config(root, work + "/" + model, model,
+                                   {"use_gpu": False, "train_batch_size": 256})
+    result = run_recbole(model=model, dataset=chip_smoke.ADV_DATASET, config_dict=cfg)
+    tests = result["test_result"]
+    for stage in ("pretrain", "finetune"):
+        half = {k[len(stage) + 1:]: v for k, v in tests.items() if k.startswith(stage + "-")}
+        chip_smoke._check_families(model + " " + stage, half, ["gender"])
+    import glob
+    pre = glob.glob(work + "/" + model + "/saved/*-pretrain.pth")[0]
+    fine = [p for p in glob.glob(work + "/" + model + "/saved/" + model + "-*.pth")
+            if p != pre and "_embed" not in p]
+    _, _, trainer, _, _, _, test_data = load_data_and_model(
+        fine[0], {"use_gpu": False, "pretrain_model_file_path": pre})
+    assert type(trainer).__name__ == model + "Trainer" and str(trainer.device) == "cpu"
+    assert trainer.model.train_stage == "finetune"
+    assert list(trainer.evaluate(test_data)) == list(tests)
+leaked = sorted(m for m in sys.modules
+                if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                        "recbole_fairrec_tpu"))
+print("LEAKED", leaked)
+"""
+
 _SERVE_ON_CPU_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -225,6 +260,18 @@ def test_published_protocol_runs_without_jax(tmp_path):
     afterwards no JAX, optax, JAX-package, pandas or yaml module is
     loaded."""
     proc = _run_script(_PUBLISHED_SCRIPT, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_fairgo_runs_with_jax_blocked(tmp_path):
+    """FairGo_PMF and FairGo_GCN with their published YAMLs (chip_smoke's
+    FairGo configurations at a tiny size) pretrain, finetune and read back
+    on the CPU in a fresh interpreter where importing JAX, optax or the JAX
+    package raises: both stages' metric families, the registry's trainers,
+    and afterwards no JAX, optax, JAX-package, pandas or yaml module is
+    loaded."""
+    proc = _run_script(_FAIRGO_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
 

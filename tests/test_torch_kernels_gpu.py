@@ -406,3 +406,157 @@ def test_fair_model_losses_on_card_match_cpu(card, tmp_path, model_name, extra, 
     assert losses[0] == pytest.approx(losses[1], rel=1e-6)
     for name, g in grads[1].items():
         assert float((grads[0][name] - g).abs().max()) <= 1e-6, name
+
+
+# ------------------------------------------------------------ FairGo, on card
+
+FAIRGO_STEPS = [("pretrain", "calculate_loss", "pretrain"),
+                ("finetune", "calculate_loss", "filter"),
+                ("finetune", "calculate_dis_loss", "dis")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_name", ["FairGo_PMF", "FairGo_GCN"])
+def test_fairgo_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch):
+    """FairGo at its published widths (d 64, filters [128, 64],
+    discriminators [16, 8, 4], LBA, GCN hidden 32; ``gcn_dropout`` 0) on the
+    small fair dataset: a pretrain step, then a filter and a discriminator
+    step over gender and age, each from the same parameters and batch on the
+    card and on the CPU. Only the stepped group has gradients. Losses within
+    1e-5 (rel); gradients within 1e-4 of the tensor's largest + 1e-7 (abs);
+    parameters within 1e-5 (abs), except the elements whose CPU gradient is
+    within that gradient tolerance of 0: Adam's first step moves those by up
+    to (1 - b1) / sqrt(1 - b2) = 3.16 lr of either sign, within twice that +
+    1e-5."""
+    monkeypatch.chdir(tmp_path)
+    from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
+    from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
+
+    trainers, loaders = [], []
+    for use_gpu in (True, False):
+        config = _published(tmp_path, use_gpu, model_name, {
+            "sst_attr_list": ["gender", "age"], "gcn_dropout": 0.0, "train_batch_size": 512})
+        init_seed(config["seed"], True)
+        train = data_preparation(config, create_dataset(config))[0]
+        model = get_model(model_name)(config, train.dataset,
+                                      generator=torch.Generator().manual_seed(0))
+        trainers.append(get_trainer(config["MODEL_TYPE"], model_name)(config, model))
+        loaders.append(train)
+    on_card, on_cpu = trainers
+    assert on_card.device.type == "cuda" and on_card.model.prop_dense.device.type == "cuda"
+    np.random.seed(3)
+    interaction = next(iter(loaders[1]))
+    lr = on_cpu.config["learning_rate"]
+    groups = on_cpu.model.param_groups()
+    for stage, loss_name, tag in FAIRGO_STEPS:
+        sst = None if stage == "pretrain" else ("gender", "age")
+        on_cpu.model.load_state_dict({k: v.cpu() for k, v in on_card.model.state_dict().items()})
+        losses, grads = [], []
+        for trainer in trainers:
+            trainer.model.train_stage = stage
+            trainer.model.train()
+            fields = trainer.model.loss_batch_fields(loss_name, sst)
+            moved = {k: v.to(trainer.device) for k, v in interaction.interaction.items()
+                     if k in fields}
+            losses.append(float(trainer._train_step(moved, loss_name, sst,
+                                                    trainer._tx_by_tag(tag))))
+            grads.append({n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()
+                          if p.grad is not None})
+        assert losses[0] == pytest.approx(losses[1], rel=1e-5), tag
+        assert sorted(grads[0]) == sorted(grads[1])
+        assert grads[0] and all(n.split(".")[0] in groups[tag] for n in grads[0]), tag
+        cpu_state = on_cpu.model.state_dict()
+        for name, value in on_card.model.state_dict().items():
+            gap = (value.cpu() - cpu_state[name]).abs()
+            if name not in grads[1]:
+                assert float(gap.max()) <= 1e-5, (tag, name)
+                continue
+            g = grads[1][name]
+            tol = 1e-4 * float(g.abs().max()) + 1e-7
+            assert float((grads[0][name] - g).abs().max()) <= tol, (tag, name)
+            unsure = g.abs() <= tol
+            assert float(gap.where(~unsure, 0.0).max()) <= 1e-5, (tag, name)
+            assert float(gap.where(unsure, 0.0).max()) <= 2 * 3.1623 * lr + 1e-5, (tag, name)
+
+
+@pytest.mark.gpu
+def test_bf16_propagation_on_card(card):
+    """One bfloat16 hop on the card (``torch.mm(..., out_dtype=float32)``)
+    against the CPU's (bfloat16 values widened to float32): a float32
+    result, not rounded to bfloat16, within the float32 bound of each
+    element's sum in another order (2 n 2^-24 sum |a x|; the products are
+    exact), and the gradient in ``x`` within 2^-7 of its norm (both round it
+    to bfloat16; the card also rounds the incoming gradient)."""
+    from recbole_fairrec_tpu_torch.ops import spmm
+
+    gen = torch.Generator().manual_seed(0)
+    n, d = 3000, 64
+    A = torch.rand(n, n, generator=gen)
+    A16 = (A / A.sum(dim=1, keepdim=True)).to(torch.bfloat16)
+    x = torch.randn(n, d, generator=gen)
+    g = torch.randn(n, d, generator=gen)
+    outs, grads = [], []
+    for device in (card, torch.device("cpu")):
+        xt = x.to(device).requires_grad_(True)
+        out = spmm.propagate(xt, None, None, None, n, dense=A16.to(device))
+        (out * g.to(device)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append(xt.grad.cpu())
+    assert outs[0].dtype == torch.float32
+    assert not torch.equal(outs[0], outs[0].to(torch.bfloat16).float())
+    bound = 2 * n * 2.0 ** -24 * (A16.float().abs() @ x.to(torch.bfloat16).float().abs())
+    assert bool(((outs[0] - outs[1]).abs() <= bound).all())
+    assert float((grads[0] - grads[1]).norm()) <= 2.0 ** -7 * float(grads[1].norm())
+
+
+@pytest.mark.gpu
+def test_float32_propagation_ignores_a_global_tf32_setting(card):
+    """With the process's float32 matmul precision at "high" (TF32), the
+    float32 hop and its gradient on the card stay within 8 times the CPU's
+    float32 error against float64 (TF32's 10-bit mantissa is ~2^13 times
+    that), while a plain ``torch.mm`` at "high" does not: the hop pins its
+    own precision, forward and backward."""
+    from recbole_fairrec_tpu_torch.ops import spmm
+
+    gen = torch.Generator().manual_seed(0)
+    n, d = 3000, 64
+    A = torch.rand(n, n, generator=gen)
+    A = A / A.sum(dim=1, keepdim=True)
+    x = torch.randn(n, d, generator=gen)
+    g = torch.randn(n, d, generator=gen)
+    ref, ref_grad = A.double() @ x.double(), A.double().t() @ g.double()
+
+    def hop(device):
+        xt = x.to(device, copy=True).requires_grad_(True)
+        out = spmm.propagate(xt, None, None, None, n, dense=A.to(device))
+        (out * g.to(device)).sum().backward()
+        return ((out.detach().cpu().double() - ref).abs().max(),
+                (xt.grad.cpu().double() - ref_grad).abs().max())
+
+    cpu_err, cpu_grad_err = hop(torch.device("cpu"))
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        card_err, card_grad_err = hop(card)
+        plain_err = (torch.mm(A.to(card), x.to(card)).cpu().double() - ref).abs().max()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert float(card_err) <= 8 * float(cpu_err)
+    assert float(card_grad_err) <= 8 * float(cpu_grad_err)
+    assert float(plain_err) > 8 * float(cpu_err)
+
+
+@pytest.mark.gpu
+def test_use_pallas_false_is_refused_on_card(card, tmp_path, monkeypatch):
+    """Streaming evaluation on the card runs the fused top-k kernel and has
+    no plain path: ``use_pallas: False`` is refused by name there (the CPU
+    takes ``ops/topk.py``; tests/test_torch_serving.py)."""
+    monkeypatch.chdir(tmp_path)
+    gen = torch.Generator().manual_seed(0)
+    state = {"user_embedding.weight": torch.randn(N_USERS, 64, generator=gen),
+             "item_embedding.weight": torch.randn(N_ITEMS, 64, generator=gen)}
+    trainer = _trainer(tmp_path, True, "adam", state)
+    trainer.config["use_pallas"] = False
+    with pytest.raises(NotImplementedError, match="use_pallas: False on the card"):
+        trainer._collect_full_sort_streaming(None)

@@ -184,6 +184,49 @@ def test_streaming_equals_dense_on_exact_weights(sides):
         jax_side.trainer.params = jax.tree_util.tree_map(jax.numpy.asarray, params)
 
 
+def test_use_pallas_false_takes_the_plain_streaming_path(sides, monkeypatch):
+    """On the CPU, ``use_pallas: False`` routes streaming evaluation through
+    the plain tiled ``ops.topk.streaming_topk_scores`` and never calls the
+    fused top-k's wrapper; the default calls the wrapper and never the tiled
+    version. On untied scores (``_exact_weights``) both give the dense
+    path's metrics, as the JAX package's plain streaming path does. (On the
+    card the key is refused: tests/test_torch_kernels_gpu.py.)"""
+    from recbole_fairrec_tpu_torch.ops import topk
+
+    jax_side, torch_side, _ = sides
+    params = _jax_params(jax_side)
+    exact = _exact_weights({k: v.shape for k, v in params.items()})
+    jax_side.trainer.params = jax.tree_util.tree_map(jax.numpy.asarray, exact)
+    load_jax_params(torch_side.trainer.model, exact)
+    calls = {"wrapper": 0, "tiled": 0}
+
+    def counting(name, fn):
+        def run(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(fused_topk, "fused_topk_scores",
+                        counting("wrapper", fused_topk.fused_topk_scores))
+    monkeypatch.setattr(topk, "streaming_topk_scores",
+                        counting("tiled", topk.streaming_topk_scores))
+    try:
+        for split in (1, 2):
+            dense = torch_side.evaluate(split, False)
+            for use_pallas, route in ((True, "wrapper"), (False, "tiled")):
+                torch_side.config["use_pallas"] = use_pallas
+                before = dict(calls)
+                assert torch_side.evaluate(split, True) == dense
+                assert torch_side.trainer._last_eval_path == "streaming"
+                assert {k: calls[k] > before[k] for k in calls} == \
+                    {k: k == route for k in calls}
+            jax_side.config["use_pallas"] = False
+            assert jax_side.evaluate(split, True) == dense
+    finally:
+        torch_side.config["use_pallas"] = jax_side.config["use_pallas"] = True
+        jax_side.trainer.params = jax.tree_util.tree_map(jax.numpy.asarray, params)
+
+
 def test_load_data_and_model_reads_jax_checkpoint(sides):
     jax_side, _, root = sides
     ckpt = str(root / "jax-written.pth")
