@@ -10,7 +10,8 @@ serves full-sort evaluation of BPR-MF (PFCN_PMF, ``filter_mode: none``,
 same data through ``run_recbole``, trains the adversarial PFCN family
 (filters, discriminators and their alternation), the fair models with
 their published protocol and FairGo (graph propagation, pretrain then
-adversarial finetune) through ``run_recbole``, checks that every path that
+adversarial finetune) through ``run_recbole``, trains with resident epochs
+and runs a hyper-parameter search, checks that every path that
 has a kernel went through it, and holds every kernel
 against its plain PyTorch version at the shapes the paths give it. Imports
 nothing of JAX.
@@ -57,7 +58,21 @@ Phases, each of which exits non-zero when it fails:
      propagation equals COO and bfloat16 stays within its bound; seconds
      per epoch, validation and test, the split of each step kind, and one
      hop against its bound are printed;
-  8. kernels: each kernel against its plain version on the inputs the
+  8. resident: run_recbole of the training phase's BPR-MF with resident
+     epochs (device_epoch_shuffle: the train table on the card, the
+     shuffle and the negatives drawn there), 3 epochs, streaming validation
+     and test through the kernel, launch counts set to 0 before and read
+     after; one resident epoch with an injected permutation and negatives
+     equals the card's per-step path on the same batches and the CPU's
+     resident epoch; per-step and resident epochs side by side with their
+     idle shares; a resident PFCN_PMF sm epoch (filter + discriminators) at
+     the YAML's widths; a 2-trial exhaustive search over the learning rate;
+     certified_topk_scores on the serving inputs against the plain version.
+     (The published phase also times a uni100 validation with the device
+     paths' emits deferred and immediate; the serve, published and fairgo
+     phases check with the profiler that no collect call of the dense or
+     sampled device path synchronises.)
+  9. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
@@ -260,6 +275,8 @@ def serve(data_root, work_dir, extra_cfg=None):
         dense[name + "_s"] = time.perf_counter() - t0
         if trainer2._last_eval_path != "fused":
             fail(f"dense evaluate({name}) took the path {trainer2._last_eval_path!r}")
+    check_no_sync_in_collect("serve: dense evaluate(test)", trainer2,
+                             lambda: trainer2.evaluate(test2))
     for name in ("valid", "test"):
         print(f"serve: {name} streaming {stream[name]} in {stream[name + '_s']:.4f} s",
               flush=True)
@@ -287,18 +304,23 @@ def _timed_fit(modules):
     the state of numpy's generator at its start (the sampled negatives draw
     from it). Each validation and ``evaluate`` also
     records its split: the host's time in the sampled loader (the negative
-    draws and the batch assembly), the time in the sampled device path
-    (synchronised) and its number of calls, and the loader batches. Yields
-    the record; the methods are put back on exit."""
+    draws and the batch assembly), the span of the sampled device path on
+    the card's timeline (CUDA events around each call, read after the
+    evaluation, so the deferred emits keep their overlap) and its number of
+    calls, and the loader batches. Yields the record (with each trainer's
+    train loader); the methods are put back on exit."""
     from recbole_fairrec_tpu_torch.data import NegSampleEvalDataLoader
     from recbole_fairrec_tpu_torch.trainer import FairGoTrainer, PFCNTrainer, Trainer
 
-    record = {"trainers": [], "epoch_s": [], "examples": [], "valid_s": [],
+    import torch
+
+    record = {"trainers": [], "train_data": [], "epoch_s": [], "examples": [], "valid_s": [],
               "valid_results": [], "valid_launches": [], "valid_paths": [], "valid_split": [],
               "train_epoch_s": [], "train_epoch_losses": [], "test_s": [], "test_launches": [],
               "test_paths": [], "test_split": [], "test_rng": [], "passes": [],
               "pass_losses": []}
     counters = {"draws_s": 0.0, "device_s": 0.0, "sampled_calls": 0, "batches": 0}
+    spans = []  # CUDA events around each sampled call, read after the evaluation
     in_eval = []
     originals = {}
 
@@ -310,6 +332,7 @@ def _timed_fit(modules):
         def run(self, train_data, *args, **kwargs):
             if not any(self is t for t in record["trainers"]):
                 record["trainers"].append(self)
+                record["train_data"].append(train_data)
             _sync()
             t0 = time.perf_counter()
             out = run_epoch(self, train_data, *args, **kwargs)
@@ -340,6 +363,8 @@ def _timed_fit(modules):
                     in_eval.pop()
                 _sync()
                 record[f"{kind}_s"].append(time.perf_counter() - t0)
+                counters["device_s"] += sum(a.elapsed_time(b) for a, b in spans) / 1e3
+                spans.clear()
                 if kind == "valid":
                     record["valid_results"].append(dict(out[1]))
                 record[f"{kind}_launches"].append(
@@ -373,11 +398,11 @@ def _timed_fit(modules):
 
     def timed_sampled(collect):
         def run(self, *args, **kwargs):
-            _sync()
-            t0 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             out = collect(self, *args, **kwargs)
-            _sync()
-            counters["device_s"] += time.perf_counter() - t0
+            ev[1].record()
+            spans.append(ev)
             counters["sampled_calls"] += 1
             return out
         return run
@@ -403,10 +428,14 @@ def _check_metrics(label, result):
             fail(f"{label}: metric {metric} = {value} is not in [0, 1]")
 
 
-def train(data_root, work_dir, card, extra_cfg=None):
-    """Phase 4: the training main path through ``run_recbole``. Returns the
-    launch counts of its run."""
-    from recbole_fairrec_tpu_torch import load_data_and_model, run_recbole
+def _bpr_run(data_root, work_dir, card, label, extra_cfg=None):
+    """BPR-MF through ``run_recbole`` with the training phase's settings
+    (``extra_cfg`` on top), the launch counts set to 0 just before and read
+    just after: the trainer on the card, 3 epochs whose loss falls, every
+    validation and the test through the kernel, the result's structure.
+    Prints ``<label>: epochs`` and returns (result, record, trainer, cfg,
+    launches)."""
+    from recbole_fairrec_tpu_torch import run_recbole
 
     cfg = train_config(data_root, work_dir, extra_cfg)
     modules = {k["name"]: _kernel_module(k) for k in KERNELS}
@@ -420,35 +449,35 @@ def train(data_root, work_dir, card, extra_cfg=None):
     launches = {name: mod.launches for name, mod in modules.items()}
 
     if len(rec["trainers"]) != 1:
-        fail(f"train: run_recbole trained {len(rec['trainers'])} trainers, expected 1")
+        fail(f"{label}: run_recbole trained {len(rec['trainers'])} trainers, expected 1")
     trainer = rec["trainers"][0]
-    _require_card_trainer(trainer, "train")
+    _require_card_trainer(trainer, label)
     losses = [trainer.train_loss_dict[e] for e in sorted(trainer.train_loss_dict)]
     if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
-        fail(f"train: epoch losses {losses}")
+        fail(f"{label}: epoch losses {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall over {TRAIN_EPOCHS} epochs: {losses}")
+        fail(f"{label}: the loss did not fall over {TRAIN_EPOCHS} epochs: {losses}")
     if len(rec["valid_s"]) != TRAIN_EPOCHS:
-        fail(f"train: {len(rec['valid_s'])} validations, expected {TRAIN_EPOCHS}")
+        fail(f"{label}: {len(rec['valid_s'])} validations, expected {TRAIN_EPOCHS}")
     for epoch, (res, n, path) in enumerate(
             zip(rec["valid_results"], rec["valid_launches"], rec["valid_paths"])):
-        _check_metrics(f"train: validation {epoch}", res)
+        _check_metrics(f"{label}: validation {epoch}", res)
         if path != "streaming-kernel":
-            fail(f"train: validation {epoch} took the path {path!r}")
+            fail(f"{label}: validation {epoch} took the path {path!r}")
         for name, count in n.items():
             if count < 1:
-                fail(f"train: validation {epoch} launched the kernel {name} no time")
+                fail(f"{label}: validation {epoch} launched the kernel {name} no time")
     if trainer._last_eval_path != "streaming-kernel":
-        fail(f"train: the test evaluation took the path {trainer._last_eval_path!r}")
+        fail(f"{label}: the test evaluation took the path {trainer._last_eval_path!r}")
     for name, count in launches.items():
         in_valid = sum(n[name] for n in rec["valid_launches"])
         if count - in_valid < 1:
-            fail(f"train: the test evaluation launched the kernel {name} no time")
+            fail(f"{label}: the test evaluation launched the kernel {name} no time")
     if list(result["test_result"]) != ["none"]:
-        fail(f"train: test_result keys {list(result['test_result'])}")
-    _check_metrics("train: test", result["test_result"]["none"])
+        fail(f"{label}: test_result keys {list(result['test_result'])}")
+    _check_metrics(f"{label}: test", result["test_result"]["none"])
     if result["best_valid_result"] not in rec["valid_results"]:
-        fail("train: best_valid_result is none of the validations' results")
+        fail(f"{label}: best_valid_result is none of the validations' results")
 
     examples = rec["examples"][0]
     first_s, later_s = rec["epoch_s"][0], rec["epoch_s"][1:]
@@ -458,11 +487,22 @@ def train(data_root, work_dir, card, extra_cfg=None):
         "first_epoch_s": first_s, "first_epoch_examples_per_s": examples / first_s,
         "later_epochs_s": later_s,
         "later_epochs_examples_per_s": [examples / t for t in later_s],
-        "validation_s": rec["valid_s"], "epoch_losses": losses, "card": card,
+        "validation_s": rec["valid_s"], "test_s": rec["test_s"], "epoch_losses": losses,
+        "card": card,
     }
-    print(f"train: epochs {json.dumps(row)}", flush=True)
-    print(f"train: best valid {result['best_valid_result']}; test {result['test_result']}; "
+    print(f"{label}: epochs {json.dumps(row)}", flush=True)
+    print(f"{label}: best valid {result['best_valid_result']}; test {result['test_result']}; "
           f"launches on the main path {launches}", flush=True)
+    return result, rec, trainer, cfg, launches
+
+
+def train(data_root, work_dir, card, extra_cfg=None):
+    """Phase 4: the training main path through ``run_recbole``, then the
+    checkpoint read back, the negatives, one step against the CPU and the
+    step split. Returns the launch counts of its run."""
+    from recbole_fairrec_tpu_torch import load_data_and_model
+
+    result, _, trainer, cfg, launches = _bpr_run(data_root, work_dir, card, "train", extra_cfg)
 
     # the checkpoint fit saved, read back through the serving entry point
     config2, _, trainer2, _, train2, _, test2 = load_data_and_model(
@@ -607,6 +647,7 @@ def adversarial(data_root, work_dir, card):
         "run_recbole_s": rec["run_recbole_s"], "examples_per_epoch": rec["examples"][0],
         "filter_and_dis_epoch_s": [t for t, l in zip(epochs, rec["train_epoch_losses"]) if l[0]],
         "dis_only_epoch_s": [t for t, l in zip(epochs, rec["train_epoch_losses"]) if not l[0]],
+        "pass_s": rec["epoch_s"],
         "validation_s": rec["valid_s"], "subsets_per_validation": rec["subsets"],
         "test_s": rec["test_s"][0], "epoch_losses": rec["train_epoch_losses"],
         "passes": rec["passes"], "launches": launches, "config": {k: trainer.config[k] for k in (
@@ -794,7 +835,7 @@ def _collect_on(trainer, kind, batches, sst, path, k):
     with torch.no_grad():
         for batch in batches:
             if path == "device":
-                trainer._collect_batch(kind, batch, sst)
+                trainer._drain_collect([trainer._collect_batch(kind, batch, sst)])
                 continue
             _, scores, pos_u, pos_i = trainer._neg_sample_batch_eval(batch, sst)
             top = -np.sort(-scores, axis=1)[:, : k + 1]
@@ -886,6 +927,134 @@ def check_sampled_paths(trainer, valid_data, cpu_trainer, attrs, card):
     print(f"published: sampled paths {json.dumps(row)}", flush=True)
 
 
+@contextlib.contextmanager
+def _split_evaluation(trainer, immediate):
+    """While installed: the host's time in the sampled loader (draws), in
+    ``_collect_batch`` (the launches) and in ``_drain_collect`` (the
+    payload copies and the collector), and the span of each collect call on
+    the card's timeline (CUDA events, read after the evaluation); with
+    ``immediate`` each deferred emit runs inside its own collect call, as
+    before deferral. Yields the split, filled in on exit."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.data import NegSampleEvalDataLoader
+
+    split = {"draws_s": 0.0, "collect_host_s": 0.0, "drain_host_s": 0.0, "calls": 0}
+    spans = []
+    next_batch = NegSampleEvalDataLoader._next_batch_data
+    collect, drain = trainer._collect_batch, trainer._drain_collect
+
+    def timed_next(self):
+        t0 = time.perf_counter()
+        out = next_batch(self)
+        split["draws_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_collect(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        emit = collect(*args, **kwargs)
+        ev[1].record()
+        if immediate and emit is not None:
+            emit()
+            emit = None
+        split["collect_host_s"] += time.perf_counter() - t0
+        spans.append(ev)
+        split["calls"] += 1
+        return emit
+
+    def timed_drain(pending):
+        t0 = time.perf_counter()
+        drain(pending)
+        split["drain_host_s"] += time.perf_counter() - t0
+
+    NegSampleEvalDataLoader._next_batch_data = timed_next
+    trainer._collect_batch, trainer._drain_collect = timed_collect, timed_drain
+    try:
+        yield split
+    finally:
+        NegSampleEvalDataLoader._next_batch_data = next_batch
+        del trainer._collect_batch, trainer._drain_collect
+    split["device_span_s"] = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+
+
+def check_no_sync_in_collect(label, trainer, evaluate):
+    """``evaluate()`` (deferred emits) under ``torch.profiler``, each collect
+    call of ``trainer`` inside a ``record_function`` range: fails if a
+    synchronising CUDA runtime call (stream, device or event synchronise, a
+    blocking copy) falls inside a range, naming the operators that made it,
+    or if the profiler saw no range or no such call at all (the drain's
+    copies synchronise, so a trace without any cannot see them)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy")
+    collect = trainer._collect_batch
+
+    def marked(*args, **kwargs):
+        with record_function("chip_smoke.collect"):
+            return collect(*args, **kwargs)
+
+    trainer._collect_batch = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            evaluate()
+            _sync()
+    finally:
+        del trainer._collect_batch
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "chip_smoke.collect"]
+    syncs = [e for e in events if e.name in names]
+    inside = [e for e in syncs
+              if any(a <= e.time_range.start <= b for a, b in ranges)]
+    owners = sorted({(e.cpu_parent.name if e.cpu_parent is not None else e.name)
+                     for e in inside})
+    counts = {"collect_calls": len(ranges), "syncs_inside_collect": len(inside),
+              "syncs_outside_collect": len(syncs) - len(inside)}
+    print(f"{label}: under the profiler {json.dumps(counts)}", flush=True)
+    if not ranges or not syncs:
+        fail(f"{label}: the profiler saw {len(ranges)} collect calls and {len(syncs)} "
+             "synchronising calls: the check cannot see them")
+    if inside:
+        fail(f"{label}: {len(inside)} synchronising calls inside the collect calls, "
+             f"from {owners}")
+
+
+def time_deferral(trainer, valid_data, card):
+    """A uni100 validation (every subset per macro batch) with the device
+    paths' emits run inside their calls (immediate) and deferred to after
+    the loop, in turns (immediate, deferred, deferred, immediate), numpy
+    seeded alike before each: the dicts must be identical. Prints each
+    run's split (seconds, host draws, host time in the launches and in the
+    drain, the device span, the rest). Then the profiler's check that no
+    collect call synchronises: nothing between a batch's launch and the
+    loader's draws for the next may wait for the card."""
+    runs = []
+    for immediate in (True, False, False, True):
+        with _split_evaluation(trainer, immediate) as split:
+            np.random.seed(4)
+            _sync()
+            t0 = time.perf_counter()
+            result = trainer.pfcn_evaluate(valid_data, load_best_model=False)
+            _sync()
+            seconds = time.perf_counter() - t0
+        split.update(seconds=seconds, mode="immediate" if immediate else "deferred",
+                     other_s=seconds - split["draws_s"] - split["collect_host_s"]
+                     - split["drain_host_s"])
+        runs.append((result, split))
+        if trainer._last_eval_path != "sampled-fused":
+            fail(f"deferral: the validation took the path {trainer._last_eval_path!r}")
+    if any(r != runs[0][0] for r, _ in runs[1:]):
+        fail("deferral: deferred and immediate emits give different validation dicts")
+    row = {"runs": [split for _, split in runs], "card": card}
+    print(f"published: deferral {json.dumps(row)}", flush=True)
+    np.random.seed(4)
+    check_no_sync_in_collect("published: deferred validation", trainer,
+                             lambda: trainer.pfcn_evaluate(valid_data, load_best_model=False))
+
+
 def published(data_root, work_dir, card):
     """Phase 6: the fair models with their published YAMLs unchanged (uni100
     validation and test, top 5, NDCG@5, the 12 metrics, the rating
@@ -926,6 +1095,7 @@ def published(data_root, work_dir, card):
     over = {"log_root": cfg["log_root"]}
     _, _, trainer2, _, _, valid2, _ = load_data_and_model(ckpt, over)
     _require_card_trainer(trainer2, "published PFCN_PMF read-back", "PFCN_PMF")
+    time_deferral(trainer2, valid2, card)
     _, _, cpu_trainer, _, _, _, _ = load_data_and_model(ckpt, {**over, "use_gpu": False})
     if cpu_trainer.device.type != "cpu":
         fail("published: the comparison trainer is not on the CPU")
@@ -1562,7 +1732,7 @@ def _fairgo_read_back(trainer, cfg, result, rec, label, model):
     if dict(back) != dict(result["test_result"]):
         fail(f"{label}: the checkpoints read back give {back}, run_recbole gave "
              f"{result['test_result']}")
-    return trainer2, train2
+    return trainer2, train2, test2
 
 
 def _fairgo_attrs(trainer):
@@ -1861,8 +2031,10 @@ def fairgo(data_root, work_dir, card):
                              checkpoints=sizes)
         print(f"fairgo: epochs {json.dumps(row)}", flush=True)
         print(f"fairgo: {model} test {result['test_result']}", flush=True)
-        trainer2, train2 = _fairgo_read_back(trainer, cfg, result, rec, label, model)
+        trainer2, train2, test2 = _fairgo_read_back(trainer, cfg, result, rec, label, model)
         print(f"fairgo: {model} checkpoints read back give the same test dict", flush=True)
+        check_no_sync_in_collect(f"fairgo: {model} deferred evaluate(test)", trainer2,
+                                 lambda: trainer2.evaluate(test2, load_best_model=False))
         del trainer
         check_fairgo_steps(trainer2, train2, cfg, model)
         if model == "FairGo_PMF":
@@ -1872,6 +2044,203 @@ def fairgo(data_root, work_dir, card):
         del trainer2
         torch.cuda.empty_cache()
     time_fairgo_hop(hop_model, card)
+    return launches
+
+
+# ------------------------------------------------------------ resident epochs
+
+# the resident equality check: a wrong row, a pad row counted or a lost
+# negative moves the loss by ~1/2048 relative and a parameter by ~lr = 1e-3
+RESIDENT_LOSS_RTOL, RESIDENT_PARAM_ATOL = 1e-5, 1e-4
+
+
+def _real_row_batches(train_data, fields, perm, negs):
+    """The real rows of each resident batch (``perm`` cut into batches), in
+    its order, with its negatives: what the per-step path takes for the same
+    steps."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.data.interaction import Interaction
+
+    ds = train_data.dataset
+    n, batch = len(ds), train_data.batch_size
+    joined = ds[0:n]
+    out = []
+    for rows, neg in zip(perm.reshape(-1, batch), negs.reshape(-1, batch)):
+        keep = rows < n
+        cols = {f: joined[f][torch.from_numpy(rows[keep])] for f in fields}
+        cols["neg_item_id"] = torch.from_numpy(neg[keep])
+        out.append(Interaction(cols))
+    return out
+
+
+def _param_gap(a, b):
+    theirs = b.model.state_dict()
+    return max(float((v.detach().cpu() - theirs[k].detach().cpu()).abs().max())
+               for k, v in a.model.state_dict().items())
+
+
+def check_resident_epoch(trainer, train_data, cfg, ckpt, card):
+    """From the checkpoint (weights and Adam state): one resident epoch on
+    the card with an injected permutation and negatives, the card's per-step
+    path over the real rows of the same batches, and the CPU's resident
+    epoch on the same injections. Losses within ``RESIDENT_LOSS_RTOL`` (rel),
+    parameters within ``RESIDENT_PARAM_ATOL`` (abs)."""
+    from recbole_fairrec_tpu_torch import Config
+
+    cpu_config = Config(model="PFCN_PMF", dataset=DATASET, config_dict={**cfg, "use_gpu": False})
+    trainers = {"resident": trainer,
+                "per_step": type(trainer)(trainer.config, copy.deepcopy(trainer.model)),
+                "cpu_resident": type(trainer)(cpu_config, copy.deepcopy(trainer.model))}
+    if trainers["cpu_resident"].device.type != "cpu":
+        fail("resident: the comparison trainer is not on the CPU")
+    for t in trainers.values():
+        t.resume_checkpoint(ckpt)
+    n = len(train_data.dataset)
+    batch = train_data.batch_size
+    n_pad = -(-n // batch) * batch
+    rng = np.random.RandomState(7)
+    perm = rng.permutation(n_pad)
+    negs = rng.randint(1, train_data.dataset.item_num, n_pad)
+    fields = set(trainer.model.loss_batch_fields("calculate_loss")) - {"neg_item_id",
+                                                                      "__weight__"}
+    losses, seconds = {}, {}
+    for name, t in trainers.items():
+        t0 = time.perf_counter()
+        if name == "per_step":
+            losses[name] = t._run_epoch(_real_row_batches(train_data, fields, perm, negs))
+        else:
+            losses[name] = t._run_epoch_resident(train_data, perm=perm, negatives=negs)
+        if t.device.type == "cuda":
+            _sync()
+        seconds[name] = time.perf_counter() - t0
+    gaps = {"per_step": _param_gap(trainer, trainers["per_step"]),
+            "cpu_resident": _param_gap(trainer, trainers["cpu_resident"])}
+    row = {"steps": n_pad // batch, "pad_rows": n_pad - n, "losses": losses,
+           "param_gap": gaps, "seconds": seconds,
+           "limits": {"loss_rtol": RESIDENT_LOSS_RTOL, "param_atol": RESIDENT_PARAM_ATOL},
+           "card": card}
+    print(f"resident: injected epoch {json.dumps(row)}", flush=True)
+    for other in ("per_step", "cpu_resident"):
+        if not abs(losses["resident"] - losses[other]) <= RESIDENT_LOSS_RTOL * abs(losses[other]):
+            fail(f"resident: the card's resident epoch loss {losses['resident']} and the "
+                 f"{other} loss {losses[other]} differ")
+        if not gaps[other] <= RESIDENT_PARAM_ATOL:
+            fail(f"resident: parameters differ from the {other} epoch's by {gaps[other]}")
+
+
+def time_resident_epochs(trainer, train_data, card):
+    """Per-step and resident epochs of the same trainer in turns (per-step,
+    resident, resident, per-step), each timed on the host clock to the
+    card's synchronisation; then one epoch of each under the profiler: the
+    card's busy time and its idle share of the epoch."""
+    def epoch(resident):
+        trainer.config["device_epoch_shuffle"] = resident
+        return trainer._run_epoch(train_data)
+
+    walls = {"per_step": [], "resident": []}
+    try:
+        for resident in (False, True, True, False):
+            _sync()
+            t0 = time.perf_counter()
+            loss = epoch(resident)
+            _sync()
+            walls["resident" if resident else "per_step"].append(time.perf_counter() - t0)
+            if not math.isfinite(loss):
+                fail(f"resident: an epoch's loss is {loss}")
+        busy = {mode: _device_busy_ms(lambda: epoch(mode == "resident"), calls=1) / 1e3
+                for mode in walls}
+    finally:
+        trainer.config["device_epoch_shuffle"] = True
+    steps = len(train_data)
+    row = {"steps_per_epoch": steps, "epoch_s": walls,
+           "step_ms": {m: statistics.mean(w) / steps * 1e3 for m, w in walls.items()},
+           "device_busy_s_per_epoch": busy,
+           "device_idle_share": {m: 1.0 - busy[m] / statistics.mean(w) for m, w in walls.items()},
+           "card": card}
+    print(f"resident: epochs side by side {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_certified_topk(U, T, k, card):
+    """``certified_topk_scores`` and ``approx_topk_scores`` on the serving
+    inputs go through the kernel (one launch each) and agree with the plain
+    version as ``check_fused_topk`` says; every row is certified."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.ops import fused_topk
+    from recbole_fairrec_tpu_torch.ops.topk import approx_topk_scores, certified_topk_scores
+
+    before = fused_topk.launches
+    s, i = certified_topk_scores(U, T, k)
+    _, i2, certified = approx_topk_scores(U, T, k, verify=True)
+    _sync()
+    if fused_topk.launches != before + 2:
+        fail(f"certified top-k: {fused_topk.launches - before} kernel launches, expected 2")
+    if not bool(certified.all()) or certified.device.type != "cuda":
+        fail("certified top-k: a row is not certified")
+    if not torch.equal(i, i2):
+        fail("certified top-k: the certified and approximate selections differ")
+    s_p, i_p = fused_topk.fused_topk_scores_reference(U, T, k)
+    err, n_near = _compare_topk("certified", U, T, k, s, i, s_p, i_p)
+    print(f"resident: certified_topk_scores on the serving inputs (B {U.shape[0]}, I "
+          f"{T.shape[0]}, d {U.shape[1]}, k' {k}) through the kernel: max_abs_err {err}, "
+          f"near-tie swaps {n_near}, every row certified; {card}", flush=True)
+
+
+def resident(data_root, work_dir, card, serving, extra_cfg=None):
+    """Phase 8: resident epochs (``device_epoch_shuffle``) on the main path.
+    ``run_recbole`` of BPR-MF at bench.py's settings with resident epochs, 3
+    epochs, streaming validation and test through the kernel (launch counts
+    set to 0 before and read after); the losses fall; an injected resident
+    epoch on the card equals the card's per-step path and the CPU's resident
+    epoch; per-step and resident epochs side by side; one PFCN_PMF ``sm``
+    resident epoch (filter + discriminators) at the YAML's widths; a 2-trial
+    exhaustive search over the learning rate at 1 epoch; the certified top-k
+    on ``serving`` (U, T, k'). Returns the kernels' launch counts of its
+    main path."""
+    from recbole_fairrec_tpu_torch import objective_function
+    from recbole_fairrec_tpu_torch.trainer.hyper_tuning import HyperTuning
+
+    _, rec, trainer, cfg, launches = _bpr_run(
+        data_root, work_dir, card, "resident", {"device_epoch_shuffle": True, **(extra_cfg or {})})
+    train_data = rec["train_data"][0]
+    if trainer._resident_cache is None or not train_data.device_neg_sampling:
+        fail("resident: the epochs did not run resident")
+
+    check_resident_epoch(trainer, train_data, cfg, trainer.saved_model_file, card)
+    time_resident_epochs(trainer, train_data, card)
+
+    # PFCN_PMF sm: one resident filter + discriminator epoch at the YAML's widths
+    _, arec, alaunches, atrainer = _adversarial_run(
+        data_root, os.path.join(work_dir, "adversarial"), "PFCN_PMF",
+        {"epochs": 1, "device_epoch_shuffle": True, **(extra_cfg or {})}, "streaming-kernel")
+    if atrainer._resident_cache is None:
+        fail("resident PFCN_PMF: the passes did not run resident")
+    for name, n in alaunches.items():
+        launches[name] += n
+    print(f"resident: PFCN_PMF sm over {ADV_ATTRS}, 1 resident epoch: passes "
+          f"{json.dumps(arec['passes'])} in {json.dumps(arec['epoch_s'])} s, losses "
+          f"{arec['train_epoch_losses']}; launches {alaunches}; {card}", flush=True)
+
+    # the hyper-parameter search: 2 trials of 1 resident epoch each
+    base = {**cfg, "model": "PFCN_PMF", "dataset": DATASET, "epochs": 1,
+            "save_sst_embed": False}
+    t0 = time.perf_counter()
+    hp = HyperTuning(lambda c, files: objective_function({**base, **c}, files, saved=False),
+                     params_dict={"choice": {"learning_rate": [0.001, 0.005]}},
+                     algo="exhaustive")
+    hp.run()
+    _sync()
+    if list(hp.params2result) != ["learning_rate:0.001", "learning_rate:0.005"]:
+        fail(f"resident: the search ran {list(hp.params2result)}")
+    for params, res in hp.params2result.items():
+        _check_metrics(f"resident: search trial {params}", res["test_result"]["none"])
+    print(f"resident: exhaustive search over learning_rate, 2 trials in "
+          f"{time.perf_counter() - t0:.3f} s; best {hp.best_params} score {hp.best_score}; "
+          f"{card}", flush=True)
+
+    check_certified_topk(*serving, card)
     return launches
 
 
@@ -1958,8 +2327,9 @@ def _library_topk(U, T, k):
     return torch.topk(s, k, dim=1)
 
 
-def check_fused_topk(mod, U, T, k, label, card, reps=20):
-    """Kernel against its plain version on the same inputs.
+def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p):
+    """A kernel's top-k' (``s_k``, ``i_k``) against the plain version's on the
+    same inputs; returns (max_abs_err, near-tie swaps).
 
     Tolerance: a float32 dot product of length d summed in any order is
     within d * 2^-24 * sum|u_j t_j| of the exact value, so two orders differ
@@ -1970,9 +2340,6 @@ def check_fused_topk(mod, U, T, k, label, card, reps=20):
     in both."""
     import torch
 
-    s_k, i_k = mod.fused_topk_scores(U, T, k)
-    torch.cuda.synchronize()
-    s_p, i_p = mod.fused_topk_scores_reference(U, T, k)
     B, d = U.shape
     if s_k.shape != (B, k) or i_k.shape != (B, k):
         fail(f"fused_topk[{label}]: output shapes {tuple(s_k.shape)}, {tuple(i_k.shape)}")
@@ -2005,7 +2372,20 @@ def check_fused_topk(mod, U, T, k, label, card, reps=20):
         b, j = (int(x) for x in torch.nonzero(bad)[0])
         fail(f"fused_topk[{label}]: index {int(i_k[b, j])} != {int(i_p[b, j])} at "
              f"row {b} slot {j} (scores {float(s_k[b, j])}, {float(s_p[b, j])})")
-    n_near = int(((i_k != i_p) & near).sum())
+    return err, int(((i_k != i_p) & near).sum())
+
+
+def check_fused_topk(mod, U, T, k, label, card, reps=20):
+    """Kernel against its plain version on the same inputs (tolerance as
+    ``_compare_topk`` says), then its times beside the plain version's, the
+    library yardstick's and the bound."""
+    import torch
+
+    s_k, i_k = mod.fused_topk_scores(U, T, k)
+    torch.cuda.synchronize()
+    s_p, i_p = mod.fused_topk_scores_reference(U, T, k)
+    B, d = U.shape
+    err, n_near = _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p)
 
     ms = _median_ms(lambda: mod.fused_topk_scores(U, T, k), reps)
     ms_back_to_back = _median_ms(lambda: mod.fused_topk_scores(U, T, k), reps, calls=10)
@@ -2085,9 +2465,15 @@ def main():
     fairgo_launches = fairgo(data_root, os.path.join(work, "fairgo"), card)
     print(f"fairgo: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 8: every kernel against its plain version
-    mod = _kernel_module(KERNELS[0])
+    # phase 8: resident epochs, the search and the certified top-k
     U, T, k_prime = serving_inputs(trainer, test_data)
+    t0 = time.perf_counter()
+    resident_launches = resident(data_root, os.path.join(work, "resident"), card,
+                                 (U, T, k_prime))
+    print(f"resident: phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 9: every kernel against its plain version
+    mod = _kernel_module(KERNELS[0])
     gen = torch.Generator().manual_seed(2020)
     rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)] + adv_rows
     Ug = torch.randn(U.shape, generator=gen).cuda()
@@ -2107,7 +2493,8 @@ def main():
     main_row = rows[0]
     by_path = {k["name"]: {"serve": launches[k["name"]], "train": train_launches[k["name"]],
                            **adv_launches, "published": published_launches[k["name"]],
-                           "fairgo": fairgo_launches[k["name"]]} for k in KERNELS}
+                           "fairgo": fairgo_launches[k["name"]],
+                           "resident": resident_launches[k["name"]]} for k in KERNELS}
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],

@@ -35,8 +35,11 @@ def full_sort_eval_step(scores, pos_u, pos_i, pos_w, hist_u, hist_i, top_k):
         (topk_idx [B,k], rec_topk [B,k+1], pos_score [P]).
     """
     scores = scores.clone()
-    scores[:, 0] = float("-inf")
-    scores[hist_u, hist_i] = float("-inf")
+    # the fill value lives on the scores' device: a Python float given to
+    # an indexed assignment is copied to the card with a wait for it
+    neg_inf = torch.full((), float("-inf"), dtype=scores.dtype, device=scores.device)
+    scores[:, 0] = neg_inf
+    scores.index_put_((hist_u, hist_i), neg_inf)
     return _ranked(scores, pos_u, pos_i, pos_w, top_k)
 
 

@@ -109,10 +109,13 @@ class PFCNTrainer(Trainer):
         """Feed every macro batch of ``eval_data`` to the collector once per
         subset in ``subsets`` (batches outside, subsets inside): one pass over
         the loader, so a sampled loader draws its negatives once for all of
-        them."""
+        them. The device paths' emits are drained after the pass, in that
+        order."""
+        pending = []
         for batched_data in self._macro_batches(eval_data, kind):
             for sst_list in subsets:
-                self._collect_batch(kind, batched_data, sst_list)
+                pending.append(self._collect_batch(kind, batched_data, sst_list))
+        self._drain_collect(pending)
         self.eval_collector.model_collect(self.model)
         return self.evaluator.evaluate(self.eval_collector.get_data_struct())
 
@@ -175,7 +178,7 @@ class PFCNTrainer(Trainer):
     def _load_optimizers(self, checkpoint):
         """The main optimizer, and the filter and discriminator optimizers
         when the model has filters; from the port's payloads or the JAX
-        package's masked optax states (Adam only)."""
+        package's masked optax states (``utils/jax_params.py::load_jax_opt_state``)."""
         super()._load_optimizers(checkpoint)
         if self.filter_mode != "none":
             self._load_optimizer_payload(self.tx_filter, checkpoint["optimizer_filter"])

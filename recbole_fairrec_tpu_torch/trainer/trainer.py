@@ -11,13 +11,27 @@ the gradients of the optimizer's parameters alone → a zero gradient for
 each of them that the loss did not reach → gradient clipping over the
 optimizer's parameters → the optimizer's step. Every learner follows the JAX package's
 update rule (its optax chain), not PyTorch's default where the two differ;
-see ``_build_optimizer`` and ``trainer/optim.py``. Train batches are not
-padded and carry no ``__weight__``: static shapes are XLA's need, and the
-weighted mean over all-ones weights is the plain mean. The epoch loss is the
-sum of the step losses, accumulated on the device and read once per epoch.
-``train_macro_steps`` and ``train_macro_rows`` (the JAX package's fusing of
-steps into one dispatch, which changes no result there) are accepted and
-ignored.
+see ``_build_optimizer`` and ``trainer/optim.py``. Batches from the loader
+are not padded and carry no ``__weight__``: static shapes are XLA's need, and
+the weighted mean over all-ones weights is the plain mean. The epoch loss is
+the sum of the step losses, accumulated on the device and read once per
+epoch. ``train_macro_steps`` and ``train_macro_rows`` (the JAX package's
+fusing of steps into one dispatch, which changes no result there) are
+accepted and ignored.
+
+Resident epochs (``device_epoch_shuffle: True``, JAX's eligibility rule in
+``_resident_epoch_ok``: the loader in ``device_neg_sampling`` mode, a model
+with negatives and declared loss fields — BPR-MF and both PFCN passes). The
+loss's columns of every train row, user and item features joined, live on
+the device as one table padded with zero rows to whole batches, with a
+``__weight__`` of 1 for real rows and 0 for pad rows (built once per
+dataset, field set and size). An epoch draws one permutation of the padded
+rows and the negatives of the whole pass on the trainer's device generator,
+then runs its steps from device slices of the table: no host→device batch
+copy, no host read until the epoch's loss. Pad rows fall inside the random
+batches and carry weight 0 through the weighted means and BatchNorm
+statistics. The loader is not iterated, so its in-place shuffle does not
+run, and the row order is drawn on the device, not from numpy's stream.
 
 Evaluation takes the JAX package's paths (``_collect_batch``):
 
@@ -38,6 +52,14 @@ Evaluation takes the JAX package's paths (``_collect_batch``):
   evaluation) need every score on the host. The model still scores on the
   trainer's device (``_full_sort_scores``, ``_neg_sample_batch_eval``); the
   collector ranks in numpy.
+
+Deferred emits: the two device paths (dense full-sort and sampled) launch
+their work and return a closure that copies the O(users · k) payload to the
+host and feeds the collector; ``evaluate`` keeps the closures in batch order
+and drains them after the loop (``_drain_collect``), so the card scores
+batch k while the host loads batch k+1. The host→device copies of those
+paths go through pinned memory without waiting for the card. The streaming
+and host paths feed the collector inside the call.
 
 ``_last_eval_path`` names the path that ran.
 """
@@ -154,6 +176,7 @@ class Trainer(AbstractTrainer):
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(config["seed"] or 0))
         self._device_used_keys = None
+        self._resident_key = self._resident_cache = None
         self.optimizer = self._build_optimizer()
 
         self.eval_type = config["eval_type"]
@@ -313,9 +336,12 @@ class Trainer(AbstractTrainer):
 
     def _run_epoch(self, train_data, loss_name="calculate_loss", sst_list=None, tx_tag="main"):
         """One pass over the loader with the given (loss, sst subset,
-        optimizer) selection. Returns the sum of the step losses (one host
+        optimizer) selection, resident on the device when
+        ``_resident_epoch_ok``. Returns the sum of the step losses (one host
         read), or None for an empty loader."""
         self._maybe_enable_device_sampling(train_data)
+        if self._resident_epoch_ok(train_data, loss_name, sst_list):
+            return self._run_epoch_resident(train_data, loss_name, sst_list, tx_tag)
         optimizer = self._tx_by_tag(tx_tag)
         fields = self.model.loss_batch_fields(loss_name, sst_list)
         self.model.train()
@@ -325,11 +351,103 @@ class Trainer(AbstractTrainer):
                 self._train_batch(interaction, fields), loss_name, sst_list, optimizer
             )
             total_loss = loss if total_loss is None else total_loss + loss
+        return self._epoch_total(total_loss)
+
+    def _epoch_total(self, total_loss):
         if total_loss is None:
             return None
         total = float(total_loss)  # single sync per epoch
         self._check_nan(total)
         return total
+
+    # ------------------------------------------------------ resident epochs
+
+    def _resident_epoch_ok(self, train_data, loss_name, sst_list):
+        """The JAX package's rule: ``device_epoch_shuffle`` on, the loader in
+        ``device_neg_sampling`` mode (it ships raw interaction rows; the
+        pointwise loaders expand labels or group items on the host, which
+        the table does not reproduce), a model with negatives and with the
+        loss's fields declared. BPR-MF and both PFCN passes qualify; FairGo,
+        FOCF and NFCF keep the loader's loop."""
+        return (
+            bool(self.config["device_epoch_shuffle"])
+            and getattr(train_data, "device_neg_sampling", False)
+            and hasattr(self.model, "NEG_ITEM_ID")
+            and self.model.loss_batch_fields(loss_name, sst_list) is not None
+        )
+
+    def _resident_tables(self, train_data, fields):
+        """The train table on the device: ``fields`` of ``dataset[0:n]``
+        (user and item features joined) padded with zero rows to ``n_pad =
+        n_steps · batch`` rows, and ``__weight__`` (1 real, 0 pad). Built
+        from the dataset's row order at the first call and kept for that
+        dataset, field set and size. Returns (tables, n_steps, batch)."""
+        ds = train_data.dataset
+        n = len(ds.inter_feat)
+        batch = train_data.batch_size
+        n_steps = -(-n // batch)
+        n_pad = n_steps * batch
+        key = (ds, tuple(sorted(fields)), n_pad)
+        if self._resident_key != key:
+            joined = ds[0:n]
+            tables = {}
+            for f in sorted(fields):
+                col = joined[f]
+                pad = torch.zeros((n_pad - n,) + tuple(col.shape[1:]), dtype=col.dtype)
+                tables[f] = torch.cat([col, pad]).to(self.device)
+            weight = torch.zeros(n_pad, dtype=torch.float32)
+            weight[:n] = 1.0
+            tables["__weight__"] = weight.to(self.device)
+            self._resident_key = key
+            self._resident_cache = (tables, n_steps, batch)
+        return self._resident_cache
+
+    def _resident_epoch(self, tables, n_steps, batch, loss_name, sst_list, optimizer,
+                        perm=None, negatives=None):
+        """One pass over the resident table: a permutation of its rows cut
+        into ``[n_steps, batch]``, the negatives of the whole pass in one
+        ``sample_negatives`` call (the rec loss only; the discriminator
+        pass draws none), then the steps from device slices. ``perm``
+        (``[n_steps · batch]``) and ``negatives`` (one per permuted row)
+        replace the draws when given: a test seam, as the parity tests
+        inject the JAX package's order and negatives. Returns the summed
+        loss on the device."""
+        from ..ops.neg_sampling import sample_negatives
+
+        model, dev = self.model, self.device
+        if perm is None:
+            perm = torch.randperm(n_steps * batch, generator=self.generator, device=dev)
+        perm = torch.as_tensor(perm).to(dev).long().reshape(n_steps, batch)
+        stacked = {key: value[perm] for key, value in tables.items()}
+        if loss_name == "calculate_loss":
+            if negatives is None:
+                negatives = sample_negatives(
+                    self.generator, stacked[model.USER_ID].reshape(-1),
+                    self._device_used_keys, model.n_items,
+                )
+            stacked[model.NEG_ITEM_ID] = torch.as_tensor(negatives).to(dev).reshape(
+                n_steps, batch
+            ).long()
+        total = None
+        for s in range(n_steps):
+            loss = self._train_step(
+                {key: value[s] for key, value in stacked.items()}, loss_name, sst_list,
+                optimizer,
+            )
+            total = loss if total is None else total + loss
+        return total
+
+    def _run_epoch_resident(self, train_data, loss_name="calculate_loss", sst_list=None,
+                            tx_tag="main", perm=None, negatives=None):
+        """A resident pass (see the module doc); ``perm`` and ``negatives``
+        as in :meth:`_resident_epoch`."""
+        fields = set(self.model.loss_batch_fields(loss_name, sst_list))
+        fields -= {self.model.NEG_ITEM_ID, "__weight__"}  # drawn; added by the table
+        tables, n_steps, batch = self._resident_tables(train_data, fields)
+        self.model.train()
+        total = self._resident_epoch(tables, n_steps, batch, loss_name, sst_list,
+                                     self._tx_by_tag(tx_tag), perm, negatives)
+        return self._epoch_total(total)
 
     def _train_epoch(self, train_data, epoch_idx, loss_func=None, show_progress=False):
         return self._run_epoch(train_data, loss_name=loss_func or "calculate_loss")
@@ -409,11 +527,6 @@ class Trainer(AbstractTrainer):
         stopping early after ``stopping_step`` validations without a better
         score; the best model is checkpointed when ``saved``. Returns
         (best_valid_score, best_valid_result)."""
-        if self.config["device_epoch_shuffle"]:
-            raise NotImplementedError(
-                "device_epoch_shuffle (epochs resident on the device) is not ported; "
-                "see ROADMAP Queue A, resident epochs"
-            )
         if self.config["save_sst_embed"] and type(self)._save_sst_embed is Trainer._save_sst_embed:
             self._save_sst_embed(train_data)  # raises before training, not after it
         if saved and self.start_epoch >= self.epochs:
@@ -517,15 +630,23 @@ class Trainer(AbstractTrainer):
             if target > n:
                 tail = value[-1:].expand((target - n,) + tuple(value.shape[1:]))
                 value = torch.cat([value, tail], dim=0)
-            batch[key] = value.to(self.device)
+            batch[key] = self._h2d(value)
         if target > n:
             w = torch.zeros(target, dtype=torch.float32)
             w[:n] = 1.0
-            batch["__weight__"] = w.to(self.device)
+            batch["__weight__"] = self._h2d(w)
         return batch
 
+    def _h2d(self, tensor):
+        """A host tensor on the trainer's device. To the card it goes through
+        pinned memory without waiting: the copy is ordered on the stream
+        behind the kernels already queued, and the host goes on."""
+        if self.device.type != "cuda":
+            return tensor.to(self.device)
+        return tensor.pin_memory().to(self.device, non_blocking=True)
+
     def _tensor(self, array):
-        return torch.as_tensor(np.asarray(array), device=self.device)
+        return self._h2d(torch.from_numpy(np.ascontiguousarray(array)))
 
     # ---------------------------------------------------------- checkpoints
 
@@ -553,7 +674,8 @@ class Trainer(AbstractTrainer):
 
     def _load_optimizer_payload(self, optimizer, payload):
         """Restore ``optimizer`` from a checkpoint's ``optimizer`` entry: the
-        port's own payload, or the JAX package's optax state (Adam only)."""
+        port's own payload, or the JAX package's optax state of the same learner
+        (``utils/jax_params.py::load_jax_opt_state``)."""
         if isinstance(payload, dict) and "param_groups" in payload:
             optimizer.load_state_dict(_tree_map_tensors(torch.as_tensor, payload, np.ndarray))
         else:
@@ -572,9 +694,9 @@ class Trainer(AbstractTrainer):
 
     def resume_checkpoint(self, resume_file):
         """Continue a run from a checkpoint written by this package or by the
-        JAX package (whose optimizer state is mapped for Adam, and raises for
-        another learner): epoch, step, best score, parameters and BatchNorm
-        statistics, optimizers."""
+        JAX package (whose Adam, Adagrad or RMSprop state is mapped onto the
+        same learner's, and raises for another learner): epoch, step, best
+        score, parameters and BatchNorm statistics, optimizers."""
         from ..quick_start import load_checkpoint
 
         resume_file = str(resume_file)
@@ -736,9 +858,13 @@ class Trainer(AbstractTrainer):
             scores, self._tensor(pu), self._tensor(pi), self._tensor(pw),
             self._tensor(hu), self._tensor(hi), max(self.config["topk"]),
         )
-        self._emit_fused_payload(
-            interaction, positive_u, positive_i, topk_idx, rec_topk, pos_score, n, n_pos,
-        )
+
+        def emit():
+            self._emit_fused_payload(
+                interaction, positive_u, positive_i, topk_idx, rec_topk, pos_score, n, n_pos,
+            )
+
+        return emit
 
     def _emit_fused_payload(
         self, interaction, positive_u, positive_i, topk_idx, rec_topk, pos_score,
@@ -763,7 +889,8 @@ class Trainer(AbstractTrainer):
         the rows go through ``predict``, ``sampled_topk_from_scores`` ranks
         them, and the first negative block's scores are gathered for the
         value-gap metrics. Only the item lane and per-user arrays go to the
-        card, and only the O(users · k) payload comes back."""
+        card, and only the O(users · k) payload comes back, when the
+        returned closure is called."""
         from ..ops.eval_fused import sampled_topk_from_scores
 
         interaction, _, positive_u, positive_i = batched_data
@@ -775,13 +902,13 @@ class Trainer(AbstractTrainer):
         block_starts = np.concatenate([[0], np.cumsum(counts_np * times)])[:-1]
 
         dev = self.device
-        items = items_cpu.to(dev)
-        counts = torch.as_tensor(counts_np, device=dev)
-        uid_list = interaction[uid_field][torch.from_numpy(block_starts)].to(dev)
+        items = self._h2d(items_cpu)
+        counts = self._tensor(counts_np)
+        uid_list = self._h2d(interaction[uid_field][torch.from_numpy(block_starts)])
         user_slot = torch.arange(n_users, device=dev)
         row_idx = torch.repeat_interleave(user_slot, counts * times, output_size=n_rows)
         pos_u = torch.repeat_interleave(user_slot, counts, output_size=n_pos)
-        starts = torch.as_tensor(block_starts, device=dev)
+        starts = self._tensor(block_starts)
         cum_pos = torch.cumsum(counts, 0) - counts
         pos_rows = starts[pos_u] + torch.arange(n_pos, device=dev) - cum_pos[pos_u]
         pos_i = items[pos_rows]
@@ -794,17 +921,22 @@ class Trainer(AbstractTrainer):
             max(self.config["topk"]),
         )
         r = self.eval_collector.register
-        extra = {}
-        if r.need("rec.negative_score"):
-            extra["rec.negative_score"] = scores[pos_rows + counts[pos_u]].cpu().numpy()
-        if r.need("data.negative_i"):
-            neg_idx = self._neg_block_positions(n_rows, positive_u)
-            extra["data.negative_i"] = items_cpu.numpy()[neg_idx]
+        neg_score = scores[pos_rows + counts[pos_u]] if r.need("rec.negative_score") else None
         self._last_eval_path = "sampled-fused"
-        self._emit_fused_payload(
-            interaction, positive_u, positive_i, topk_idx, rec_topk, pos_score,
-            n_users, n_pos, extra,
-        )
+
+        def emit():
+            extra = {}
+            if neg_score is not None:
+                extra["rec.negative_score"] = neg_score.cpu().numpy()
+            if r.need("data.negative_i"):
+                neg_idx = self._neg_block_positions(n_rows, positive_u)
+                extra["data.negative_i"] = items_cpu.numpy()[neg_idx]
+            self._emit_fused_payload(
+                interaction, positive_u, positive_i, topk_idx, rec_topk, pos_score,
+                n_users, n_pos, extra,
+            )
+
+        return emit
 
     @staticmethod
     def _neg_block_positions(n_rows, positive_u):
@@ -985,9 +1117,20 @@ class Trainer(AbstractTrainer):
     def _streaming_eval_ok(self):
         return self.config["streaming_eval"] and self._retrieval_eval_capable()
 
+    @staticmethod
+    def _drain_collect(pending):
+        """Call the deferred emits of ``_collect_batch`` in batch order (a
+        path that fed the collector itself left None)."""
+        for emit in pending:
+            if emit is not None:
+                emit()
+        pending.clear()
+
     def _collect_batch(self, kind, batched_data, sst_list=None):
-        """Score one eval batch and feed the collector: on the device where
-        the metrics allow it, else through the host paths."""
+        """Score one eval batch: on the device where the metrics allow it,
+        else through the host paths. The device paths return the closure
+        that feeds the collector (see ``_drain_collect``); the others feed
+        it here and return None."""
         if kind == "full":
             if self._streaming_eval_ok():
                 return self._collect_full_sort_streaming(batched_data, sst_list)
@@ -1044,8 +1187,9 @@ class Trainer(AbstractTrainer):
         kind = self._prepare_eval(eval_data)
         self.model.eval()
         self.eval_collector.model_collect(self.model)
-        for batched_data in self._macro_batches(eval_data, kind):
-            self._collect_batch(kind, batched_data)
+        pending = [self._collect_batch(kind, batched_data)
+                   for batched_data in self._macro_batches(eval_data, kind)]
+        self._drain_collect(pending)
         struct = self.eval_collector.get_data_struct()
         result = self.evaluator.evaluate(struct)
         self.wandblogger.log_eval_metrics(result, head="eval")

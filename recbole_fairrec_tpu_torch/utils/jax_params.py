@@ -18,8 +18,8 @@ its checkpoints, and ``load_jax_params`` skips them.
 ``load_jax_params`` fills a port model from such trees, ``to_jax_params`` /
 ``to_jax_state`` write them (the port's checkpoints store both in this
 layout, so the JAX package's trainer loads them), and ``load_jax_opt_state``
-turns the JAX package's Adam state, whole or masked to one optimizer's
-parameters, into ``torch.optim.Adam``'s.
+turns the JAX package's Adam, Adagrad or RMSprop state, whole or masked to
+one optimizer's parameters, into the port optimizer's.
 """
 
 from __future__ import annotations
@@ -130,11 +130,12 @@ def to_jax_state(model):
     return _tree(model, [(name, b) for name, b in model.named_buffers() if name in own])
 
 
-# optax states that hold numbers, by class name (the state arrives either
-# as optax's own named tuples or, from a checkpoint read without JAX, as
-# tuples that keep only the class name and the fields in order)
-_ADAM_STATE = "ScaleByAdamState"
-_OTHER_LEARNER_STATES = {
+# optax states that hold numbers, by class name, and the learner each one
+# belongs to (the state arrives either as optax's own named tuples or, from a
+# checkpoint read without JAX, as tuples that keep only the class name and
+# the fields in order)
+_LEARNER_OF_STATE = {
+    "ScaleByAdamState": "adam",
     "ScaleByRssState": "adagrad",
     "ScaleByRmsState": "rmsprop",
     "ScaleByRmsWithCountState": "rmsprop",
@@ -152,35 +153,60 @@ def _find_states(node, names):
             yield from _find_states(value, names)
 
 
+def _learner_of(optimizer):
+    from ..trainer.optim import Adagrad, RMSprop
+
+    for cls, learner in ((torch.optim.Adam, "adam"), (Adagrad, "adagrad"),
+                         (RMSprop, "rmsprop"), (torch.optim.SGD, "sgd")):
+        if isinstance(optimizer, cls):
+            return learner
+    return type(optimizer).__name__
+
+
+def _per_parameter_trees(learner, state):
+    """The optax state's trees under the port optimizer's state keys, and
+    the step count (Adam's only)."""
+    if learner == "adam":
+        count, mu, nu = state
+        return {"exp_avg": mu, "exp_avg_sq": nu}, count
+    # ScaleByRssState(sum_of_squares); ScaleByRmsState(nu) or
+    # ScaleByRmsWithCountState(count, nu): the accumulator is the last field
+    return {"acc": state[-1]}, None
+
+
 def load_jax_opt_state(optimizer, model, opt_state_tree):
-    """Fill ``optimizer`` (a ``torch.optim.Adam`` over some of ``model``'s
-    parameters) from the JAX package's optimizer state: the optax chain's
-    ``ScaleByAdamState(count, mu, nu)`` becomes ``step``, ``exp_avg`` and
-    ``exp_avg_sq`` of every parameter of the optimizer; the chain's empty
-    states (clipping, weight decay, the learning-rate scale) carry nothing.
-    The state of a masked optimizer (the adversarial trainers' two, an optax
-    ``multi_transform``) holds one Adam state whose moments cover only its
+    """Fill ``optimizer`` (over some of ``model``'s parameters) from the JAX
+    package's optimizer state of the same learner. The optax chain's one
+    state with numbers becomes the port optimizer's per-parameter state:
+    ``ScaleByAdamState(count, mu, nu)`` → ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` of ``torch.optim.Adam``; ``ScaleByRssState(sum_of_squares)``
+    (adagrad) and ``ScaleByRmsState(nu)`` / ``ScaleByRmsWithCountState(count,
+    nu)`` (rmsprop) → ``acc`` of ``trainer/optim.py``'s ``Adagrad`` /
+    ``RMSprop``, which keep no step count. SGD's chain holds no numbers and
+    carries nothing; the chain's other states (clipping, weight decay, the
+    learning-rate scale) are empty. The state of a masked optimizer (the
+    adversarial trainers', an optax ``multi_transform``) covers only its
     group; the parameters outside it are placeholders and are skipped.
     Training resumed from that state takes the same next step in both
     packages.
 
     Raises:
-        NotImplementedError: for the state of another learner.
+        NotImplementedError: for a state of another learner than the
+            optimizer's.
     """
-    for state in _find_states(opt_state_tree, set(_OTHER_LEARNER_STATES)):
-        learner = _OTHER_LEARNER_STATES[type(state).__name__]
+    learner = _learner_of(optimizer)
+    states = list(_find_states(opt_state_tree, set(_LEARNER_OF_STATE)))
+    found = [_LEARNER_OF_STATE[type(s).__name__] for s in states]
+    if found != ([] if learner == "sgd" else [learner]):
         raise NotImplementedError(
-            f"the JAX optimizer state of learner [{learner}] cannot be carried over; "
-            "only adam and sparse_adam states are mapped"
+            f"the JAX optimizer state of learner {found or ['sgd']} cannot be carried "
+            f"into a {type(optimizer).__name__} (learner [{learner}]); adam, adagrad, "
+            "rmsprop and sgd states are mapped onto their own learner only"
         )
-    adam = list(_find_states(opt_state_tree, {_ADAM_STATE}))
-    if len(adam) != 1 or not isinstance(optimizer, torch.optim.Adam):
-        raise NotImplementedError(
-            f"expected one Adam state for a torch.optim.Adam, found {len(adam)} for "
-            f"{type(optimizer).__name__}; only the learner [adam] is mapped"
-        )
-    count, mu, nu = adam[0]
-    mu, nu = _flatten(mu), _flatten(nu)
+    if not states:
+        return optimizer
+    trees, count = _per_parameter_trees(learner, states[0])
+    trees = {key: _flatten(tree) for key, tree in trees.items()}
     tables = _tables(model)
     names = {id(p): name for name, p in model.named_parameters()}
     state = {}
@@ -189,13 +215,14 @@ def load_jax_opt_state(optimizer, model, opt_state_tree):
         for p in group["params"]:
             name = names[id(p)]
             key = _jax_name(name, tables)
-            if key not in mu or tuple(np.shape(mu[key])) != tuple(p.shape):
-                raise KeyError(f"load_jax_opt_state: no Adam moments for parameter {name}")
-            state[index] = {
-                "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
-                "exp_avg": torch.as_tensor(np.array(mu[key]), dtype=p.dtype),
-                "exp_avg_sq": torch.as_tensor(np.array(nu[key]), dtype=p.dtype),
-            }
+            entry = {}
+            for slot, flat in trees.items():
+                if key not in flat or tuple(np.shape(flat[key])) != tuple(p.shape):
+                    raise KeyError(f"load_jax_opt_state: no {learner} state for parameter {name}")
+                entry[slot] = torch.as_tensor(np.array(flat[key]), dtype=p.dtype)
+            if count is not None:
+                entry["step"] = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+            state[index] = entry
             index += 1
     optimizer.load_state_dict(
         {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}

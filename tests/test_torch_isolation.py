@@ -90,6 +90,16 @@ def test_new_training_modules_are_checked():
             "models/fairgo_pmf.py", "models/fairgo_gcn.py"} <= rel
 
 
+def test_remaining_single_device_modules_are_checked():
+    """The modules of the resident-epoch and tools slice (the search, the
+    case study, the URL helpers, the command line) are among the sources the
+    import check walks."""
+    rel = {os.path.relpath(p, PACKAGE_DIR).replace(os.sep, "/") for p in _port_sources()}
+    assert {"trainer/hyper_tuning.py", "utils/case_study.py", "utils/url.py", "cli.py",
+            "ops/topk.py", "scripts/__init__.py", "scripts/run_recbole.py",
+            "scripts/run_hyper.py", "scripts/resume_run_recbole.py"} <= rel
+
+
 def test_kernel_sweep_imports_no_jax():
     with open(os.path.join(REPO, "kernel_sweep.py"), encoding="utf-8") as f:
         tree = ast.parse(f.read())
@@ -212,6 +222,43 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_RESIDENT_AND_TOOLS_SCRIPT = r"""
+import sys
+for blocked in ("jax", "jaxlib", "optax", "recbole_fairrec_tpu"):
+    sys.modules[blocked] = None  # importing any of them raises ImportError
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+import torch
+from recbole_fairrec_tpu_torch import cli, load_data_and_model, objective_function, run_recbole
+from recbole_fairrec_tpu_torch.ops.topk import certified_topk_scores
+from recbole_fairrec_tpu_torch.trainer.hyper_tuning import HyperTuning
+from recbole_fairrec_tpu_torch.utils.case_study import full_sort_topk
+work = sys.argv[2]
+root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500)
+cfg = chip_smoke.train_config(root, work, {"use_gpu": False, "train_batch_size": 256,
+                                           "device_epoch_shuffle": True})
+result = run_recbole(model="PFCN_PMF", dataset=chip_smoke.DATASET, config_dict=cfg)
+assert list(result["test_result"]) == ["none"], result
+base = {**cfg, "model": "PFCN_PMF", "dataset": chip_smoke.DATASET, "epochs": 1}
+hp = HyperTuning(lambda c, files: objective_function({**base, **c}, files, saved=False),
+                 params_dict={"choice": {"learning_rate": [0.01, 0.002]}}, algo="exhaustive")
+hp.run()
+assert len(hp.params2result) == 2, hp.params2result
+import glob
+ckpt = glob.glob(work + "/saved/PFCN_PMF-*.pth")[0]
+_, _, trainer, _, _, _, test_data = load_data_and_model(ckpt, {"use_gpu": False})
+scores, items = full_sort_topk(test_data.uid_list[:4], trainer, test_data, 5)
+assert items.shape == (4, 5) and (items != 0).all()
+u, t = torch.randn(6, 8), torch.randn(30, 8)
+s, i = certified_topk_scores(u, t, 4)
+assert i.shape == (6, 4)
+leaked = sorted(m for m in sys.modules
+                if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                        "recbole_fairrec_tpu"))
+print("LEAKED", leaked)
+"""
+
 _SERVE_ON_CPU_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -272,6 +319,19 @@ def test_fairgo_runs_with_jax_blocked(tmp_path):
     and afterwards no JAX, optax, JAX-package, pandas or yaml module is
     loaded."""
     proc = _run_script(_FAIRGO_SCRIPT, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_resident_training_and_tools_run_with_jax_blocked(tmp_path):
+    """Resident epochs through ``run_recbole`` (chip_smoke's training
+    settings with ``device_epoch_shuffle`` at a tiny size), a 2-trial
+    exhaustive search through ``objective_function``, the case study on the
+    checkpoint read back and the certified top-k, on the CPU in a fresh
+    interpreter where importing JAX, optax or the JAX package raises;
+    afterwards no JAX, optax, JAX-package, pandas or yaml module is
+    loaded."""
+    proc = _run_script(_RESIDENT_AND_TOOLS_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
 

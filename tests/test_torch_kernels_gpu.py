@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from recbole_fairrec_tpu_torch import Config
 from recbole_fairrec_tpu_torch.models.pfcn_pmf import PFCN_PMF
 from recbole_fairrec_tpu_torch.ops import fused_topk, neg_sampling
@@ -251,13 +252,13 @@ def test_adversarial_steps_on_card_match_cpu(card, tmp_path, loss_name, tag, mon
         assert float((value.cpu() - cpu_state[name]).abs().max()) <= limit, name
 
 
-def _near_tie_equal(U, T, k):
-    """The kernel against its plain version on float inputs: scores within
-    rtol 1e-5 plus twice the float32 bound of a length-d dot product in any
-    order; indices equal except where the plain version's neighbours lie
-    within that bound of each other."""
+def _near_tie_equal(U, T, k, topk=fused_topk.fused_topk_scores):
+    """The kernel (called through ``topk``) against its plain version on
+    float inputs: scores within rtol 1e-5 plus twice the float32 bound of a
+    length-d dot product in any order; indices equal except where the plain
+    version's neighbours lie within that bound of each other."""
     before = fused_topk.launches
-    s, i = fused_topk.fused_topk_scores(U, T, k)
+    s, i = topk(U, T, k)
     torch.cuda.synchronize()
     assert fused_topk.launches == before + 1
     s_ref, i_ref = fused_topk.fused_topk_scores_reference(U, T, k)
@@ -359,7 +360,7 @@ def test_sampled_device_path_equals_host_path_on_card(card, tmp_path, mode, attr
             for path in ("device", "host"):
                 for batch in batches:
                     if path == "device":
-                        trainer._collect_batch(kind, batch, sst)
+                        trainer._drain_collect([trainer._collect_batch(kind, batch, sst)])
                         assert trainer._last_eval_path == "sampled-fused"
                     else:
                         _, scores, pu, pi = trainer._neg_sample_batch_eval(batch, sst)
@@ -560,3 +561,123 @@ def test_use_pallas_false_is_refused_on_card(card, tmp_path, monkeypatch):
     trainer.config["use_pallas"] = False
     with pytest.raises(NotImplementedError, match="use_pallas: False on the card"):
         trainer._collect_full_sort_streaming(None)
+
+
+# ------------------------- resident epochs, deferred emits, certified top-k
+
+
+def _pfcn_on_card(tmp_path, mode, extra=None):
+    """A PFCN_PMF trainer on the card with its published YAML, its loaders,
+    and a copy of its model's initial state."""
+    from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
+    from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
+
+    config = _published(tmp_path, True, "PFCN_PMF", {
+        "filter_mode": mode, "sst_attr_list": ["gender", "age"] if mode != "none" else ["gender"],
+        "dis_dropout": 0.0, **(extra or {})})
+    generator = init_seed(config["seed"], True)
+    loaders = data_preparation(config, create_dataset(config))
+    model = get_model("PFCN_PMF")(config, loaders[0].dataset, generator=generator)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = get_trainer(config["MODEL_TYPE"], "PFCN_PMF")(config, model)
+    assert trainer.device.type == "cuda"
+    return trainer, loaders, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,loss_name,tag", [
+    ("none", "calculate_loss", "main"),
+    ("sm", "calculate_loss", "filter"),
+    ("sm", "calculate_dis_loss", "dis"),
+])
+def test_resident_epoch_equals_per_step_path_on_card(card, tmp_path, mode, loss_name, tag,
+                                                     monkeypatch):
+    """One resident pass on the card (its pad rows weighted 0) and the
+    per-step path on the real rows of the same batches, from the same state
+    with the same injected permutation and negatives: pass losses within
+    1e-6 (rel), parameters and BatchNorm statistics within 2e-5 (abs; the
+    CPU's gap in this case is 7.1e-6, in the filter pass, whose gradient
+    carries dis_weight 10 through BatchNorms of small variance). Adam for
+    BPR-MF; SGD for the filter and discriminator passes, as a pre-BatchNorm
+    bias has an analytic gradient of 0 whose float32 noise Adam would scale
+    to lr."""
+    monkeypatch.chdir(tmp_path)
+    extra = {"device_neg_sampling": True, "device_epoch_shuffle": True,
+             "train_batch_size": 256, "learner": "adam" if mode == "none" else "sgd"}
+    resident, loaders, state = _pfcn_on_card(tmp_path, mode, extra)
+    per_step = type(resident)(resident.config, type(resident.model)(
+        resident.config, loaders[0].dataset))
+    per_step.model.load_state_dict(state)
+    per_step.model.to(card)
+    loader = loaders[0]
+    assert loader.device_neg_sampling
+    sst = None if mode == "none" else ("gender", "age")
+    rng = np.random.RandomState(2)
+    n_pad = -(-len(loader.dataset) // loader.batch_size) * loader.batch_size
+    perm = rng.permutation(n_pad)
+    negs = rng.randint(1, loader.dataset.item_num, n_pad)
+    ours = resident._run_epoch_resident(loader, loss_name, sst, tag, perm=perm, negatives=negs)
+    fields = set(per_step.model.loss_batch_fields(loss_name, sst)) - {"neg_item_id",
+                                                                     "__weight__"}
+    ref = per_step._run_epoch(chip_smoke._real_row_batches(loader, fields, perm, negs),
+                              loss_name, sst, tag)
+    assert ours == pytest.approx(ref, rel=1e-6)
+    theirs = per_step.model.state_dict()
+    for name, value in resident.model.state_dict().items():
+        assert float((value - theirs[name]).abs().max()) <= 2e-5, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,eval_mode", [("none", "full"), ("sm", "uni100")])
+def test_deferred_emits_equal_immediate_on_card(card, tmp_path, mode, eval_mode, monkeypatch):
+    """``evaluate`` with the device paths' emits deferred to after the loop
+    (the default) and with each emit run inside its own call: identical
+    dicts, over several macro batches (dense full-sort and uni100). With
+    deferral no collect call synchronises with the card (CUDA's sync debug
+    mode raises on one)."""
+    monkeypatch.chdir(tmp_path)
+    trainer, loaders, _ = _pfcn_on_card(tmp_path, mode, {
+        "eval_args": {"split": {"RS": [8, 1, 1]}, "group_by": "user", "order": "RO",
+                      "mode": eval_mode},
+        "eval_batch_size": 40 * 301, "eval_macro_scores": 40 * 301,
+        "eval_macro_rows_sampled": 4000})
+    trainer.eval_collector.data_collect(loaders[0])
+    collect = trainer._collect_batch
+    counts = {"deferred": 0}
+
+    def immediate(*args, **kwargs):
+        emit = collect(*args, **kwargs)
+        assert emit is not None
+        emit()
+
+    def deferred(*args, **kwargs):
+        counts["deferred"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return collect(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    results = []
+    for wrap in (immediate, deferred):
+        trainer._collect_batch = wrap
+        np.random.seed(3)
+        results.append(trainer.evaluate(loaders[1], load_best_model=False))
+    assert trainer._last_eval_path == ("fused" if eval_mode == "full" else "sampled-fused")
+    assert counts["deferred"] > 1
+    assert results[0] == results[1]
+
+
+@pytest.mark.gpu
+def test_certified_topk_goes_through_the_kernel(card):
+    from recbole_fairrec_tpu_torch.ops.topk import approx_topk_scores, certified_topk_scores
+
+    gen = torch.Generator().manual_seed(5)
+    U = torch.randn(1000, 64, generator=gen).to(card)
+    T = torch.randn(3630, 64, generator=gen).to(card)
+    _near_tie_equal(U, T, 50, certified_topk_scores)
+    before = fused_topk.launches
+    _, idx, certified = approx_topk_scores(U, T, 50, verify=True)
+    assert fused_topk.launches == before + 1
+    assert certified.device.type == "cuda" and bool(certified.all())
+    assert idx.dtype == torch.int32 and not bool((idx == 0).any())

@@ -342,7 +342,7 @@ def test_device_path_equals_host_path_on_the_same_batches(none_env):
         for path in ("fused", "host"):
             for batch in batches:
                 if path == "fused":
-                    pt._collect_batch(kind, batch)
+                    pt._drain_collect([pt._collect_batch(kind, batch)])
                 else:
                     _, scores, pu, pi = pt._neg_sample_batch_eval(batch)
                     pt.eval_collector.eval_batch_collect(scores, batch[0], pu, pi)

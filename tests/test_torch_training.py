@@ -423,10 +423,13 @@ def test_jax_adam_state_carried_over(tiny_env, route, weight_decay, clip, tmp_pa
 
 @pytest.mark.parametrize("learner", ["adagrad", "rmsprop"])
 def test_other_jax_optimizer_state_is_refused(tiny_env, learner, tmp_path):
+    """A JAX Adagrad or RMSprop state goes only into the same learner (the
+    carry-over itself: ``tests/test_torch_aux.py``); into the port's Adam it
+    is refused by name."""
     jt, _ = tiny_env.pair(learner=learner)
     ckpt = str(tmp_path / "jax-other.pth")
     jt._save_checkpoint(0, verbose=False, saved_model_file=ckpt)
-    pt = tiny_env.port_trainer(_np_tree(jt.params), learner=learner)
+    pt = tiny_env.port_trainer(_np_tree(jt.params), learner="adam")
     with pytest.raises(NotImplementedError, match=learner):
         pt.resume_checkpoint(ckpt)
     with pytest.raises(NotImplementedError, match=learner):
@@ -550,12 +553,18 @@ def test_load_data_and_model_gives_the_pfcn_trainer(tiny_env):
 def test_uncovered_settings_raise(tiny_env, tiny_data_path, tmp_path):
     jt, pt = tiny_env.pair()
     params = _np_tree(jt.params)
-    try:
+    loader = tiny_env.loaders[0]
+    try:  # device_epoch_shuffle is ported: it trains (tests/test_torch_resident.py)
         tiny_env.config["device_epoch_shuffle"] = True
-        with pytest.raises(NotImplementedError, match="device_epoch_shuffle"):
-            pt.fit(tiny_env.loaders[0], tiny_env.loaders[1], saved=False, verbose=False)
+        tiny_env.config["device_neg_sampling"] = True
+        loader.update_config(tiny_env.config)
+        pt.fit(loader, tiny_env.loaders[1], saved=False, verbose=False)
+        assert sorted(pt.train_loss_dict) == [0, 1, 2]
+        assert pt._resident_cache is not None
     finally:
         tiny_env.config["device_epoch_shuffle"] = False
+        tiny_env.config["device_neg_sampling"] = False
+        loader.update_config(tiny_env.config)
     try:
         tiny_env.config["mesh_shape"] = [1, 1]
         with pytest.raises(NotImplementedError, match="mesh_shape"):
