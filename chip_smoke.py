@@ -11,7 +11,8 @@ same data through ``run_recbole``, trains the adversarial PFCN family
 (filters, discriminators and their alternation), the fair models with
 their published protocol and FairGo (graph propagation, pretrain then
 adversarial finetune) through ``run_recbole``, trains with resident epochs
-and runs a hyper-parameter search, checks that every path that
+and runs a hyper-parameter search, runs the parallel layer on a world of
+one NCCL rank, checks that every path that
 has a kernel went through it, and holds every kernel
 against its plain PyTorch version at the shapes the paths give it. Imports
 nothing of JAX.
@@ -72,7 +73,18 @@ Phases, each of which exits non-zero when it fails:
      paths' emits deferred and immediate; the serve, published and fairgo
      phases check with the profiler that no collect call of the dense or
      sampled device path synchronises.)
-  9. kernels: each kernel against its plain version on the inputs the
+  9. parallel: init_multihost starts a world of one (NCCL on cuda:0);
+     run_recbole of the training phase's BPR-MF for 2 epochs without a mesh
+     and over mesh_shape [1, 1] (the NCCL group, the sharded tables, the
+     exchange lookups and the trainer's sharded paths, collectives of one
+     rank): equal losses and dicts, both epoch times printed; the
+     item-sharded top-k over the world of one; the serving inputs cut into
+     4 item shards, each through the kernel's shard mode (column offset,
+     PAD mask off), merged, against the plain version over the whole table;
+     the shard call timed beside topk(matmul) on the same shard;
+     sharded_propagate at FairGo's n (9,671) and the exchange lookup equal
+     their single-device forms; the group is destroyed;
+ 10. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
@@ -431,7 +443,7 @@ def _check_metrics(label, result):
 def _bpr_run(data_root, work_dir, card, label, extra_cfg=None):
     """BPR-MF through ``run_recbole`` with the training phase's settings
     (``extra_cfg`` on top), the launch counts set to 0 just before and read
-    just after: the trainer on the card, 3 epochs whose loss falls, every
+    just after: the trainer on the card, epochs whose loss falls, every
     validation and the test through the kernel, the result's structure.
     Prints ``<label>: epochs`` and returns (result, record, trainer, cfg,
     launches)."""
@@ -453,12 +465,13 @@ def _bpr_run(data_root, work_dir, card, label, extra_cfg=None):
     trainer = rec["trainers"][0]
     _require_card_trainer(trainer, label)
     losses = [trainer.train_loss_dict[e] for e in sorted(trainer.train_loss_dict)]
-    if len(losses) != TRAIN_EPOCHS or not all(math.isfinite(x) for x in losses):
+    epochs = cfg["epochs"]
+    if len(losses) != epochs or not all(math.isfinite(x) for x in losses):
         fail(f"{label}: epoch losses {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"{label}: the loss did not fall over {TRAIN_EPOCHS} epochs: {losses}")
-    if len(rec["valid_s"]) != TRAIN_EPOCHS:
-        fail(f"{label}: {len(rec['valid_s'])} validations, expected {TRAIN_EPOCHS}")
+        fail(f"{label}: the loss did not fall over {epochs} epochs: {losses}")
+    if len(rec["valid_s"]) != epochs:
+        fail(f"{label}: {len(rec['valid_s'])} validations, expected {epochs}")
     for epoch, (res, n, path) in enumerate(
             zip(rec["valid_results"], rec["valid_launches"], rec["valid_paths"])):
         _check_metrics(f"{label}: validation {epoch}", res)
@@ -2244,6 +2257,153 @@ def resident(data_root, work_dir, card, serving, extra_cfg=None):
     return launches
 
 
+PARALLEL_SHARDS = 4  # item shards of the serving table in the parallel phase
+PARALLEL_EPOCHS = 2
+FAIRGO_NODES = 9671  # FairGo's graph at ml-1M scale: 6,041 user + 3,630 item rows
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _shard_row(mod, U, shard, k, col0, card, reps=20):
+    """The kernel's shard mode on one item shard against its plain version,
+    and its times beside the plain version's, ``topk(matmul)`` on the same
+    shard and the bound."""
+    import torch
+
+    def kernel():
+        return mod.fused_topk_scores(U, shard, k, col_offset=col0, mask_pad=False)
+
+    def plain():
+        return mod.fused_topk_scores_reference(U, shard, k, col_offset=col0, mask_pad=False)
+
+    def library():
+        return torch.topk(torch.matmul(U, shard.T), k, dim=1)
+
+    s_k, i_k = kernel()
+    s_p, i_p = plain()
+    err, n_near = _compare_topk("shard", U, shard, k, s_k, i_k, s_p, i_p, pad_masked=False,
+                                col_offset=col0)
+    B, d = U.shape
+    I = shard.shape[0]
+    ops_ms = 2.0 * B * I * d / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (4.0 * (B * d + I * d) + 8.0 * B * k) / PEAK_BYTES * 1e3
+    return {
+        "label": "shard", "B": B, "I": I, "d": d, "k": k, "col_offset": col0,
+        "max_abs_err": err, "near_tie_swaps": n_near, "ms": _median_ms(kernel, reps),
+        "ms_back_to_back": _median_ms(kernel, reps, calls=10),
+        "plain_ms": _median_ms(plain, max(reps // 4, 3)), "library_ms": _median_ms(library, reps),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "card": card,
+    }
+
+
+def parallel(data_root, work_dir, card, serving):
+    """Phase 9: the parallel layer on the one card, a world of one NCCL rank
+    started by ``init_multihost``: BPR-MF through ``run_recbole`` without a
+    mesh and over ``mesh_shape: [1, 1]`` (collectives over one rank are
+    identities, so the losses and dicts must be equal); the item-sharded
+    top-k over the world of one; the serving table cut into PARALLEL_SHARDS
+    shards through the kernel's shard mode and merged, against the plain
+    version over the whole table; ``sharded_propagate`` at FairGo's n and
+    the exchange lookup against their single-device forms. The launch
+    counts are set to 0 just before the meshed run and read after the
+    distributed top-k. Returns (launches, the shard row)."""
+    import torch
+    import torch.distributed as dist
+
+    from recbole_fairrec_tpu_torch.ops.spmm import propagate
+    from recbole_fairrec_tpu_torch.ops.topk import streaming_topk_scores
+    from recbole_fairrec_tpu_torch.parallel import (
+        bucket_allgather_lookup,
+        distributed_topk_scores,
+        local_candidates,
+        merge_candidates,
+        pad_table_rows,
+        shard_propagation_matrix,
+        shard_table,
+        sharded_propagate,
+    )
+    from recbole_fairrec_tpu_torch.quick_start import init_multihost
+
+    ok = init_multihost({"multihost": True, "coordinator_address": f"localhost:{_free_port()}",
+                         "num_processes": 1, "process_id": 0})
+    if not ok or dist.get_backend() != "nccl" or torch.cuda.current_device() != 0:
+        fail(f"parallel: init_multihost gave backend {dist.get_backend()} on "
+             f"cuda:{torch.cuda.current_device()}, expected nccl on cuda:0")
+    print(f"parallel: world of {dist.get_world_size()} ({dist.get_backend()}, cuda:0); {card}",
+          flush=True)
+    mod = _kernel_module(KERNELS[0])
+    try:
+        extra = {"epochs": PARALLEL_EPOCHS}
+        ref, ref_rec, ref_trainer, _, _ = _bpr_run(data_root, work_dir, card,
+                                                   "parallel: meshless", extra)
+        res, rec, trainer, _, launches = _bpr_run(data_root, work_dir, card,
+                                                  "parallel: mesh [1, 1]",
+                                                  {**extra, "mesh_shape": [1, 1]})
+        mesh = trainer.mesh
+        if mesh is None or mesh.shape != {"data": 1, "model": 1} or \
+                set(trainer.model.row_shards) != {"user_embedding", "item_embedding"}:
+            fail(f"parallel: the meshed trainer has mesh {mesh} and shards "
+                 f"{trainer.model.row_shards}")
+        U, T, k = serving
+        table, n_valid = pad_table_rows(T, PARALLEL_SHARDS)
+        before = mod.launches
+        s_w, i_w = distributed_topk_scores(mesh, U, shard_table(mesh, table), k,
+                                           valid_rows=n_valid)
+        torch.cuda.synchronize()
+        launches = {name: count + mod.launches - before for name, count in launches.items()}
+        if ref_trainer.train_loss_dict != trainer.train_loss_dict:
+            fail(f"parallel: losses {trainer.train_loss_dict} over the mesh, "
+                 f"{ref_trainer.train_loss_dict} without")
+        for key in ("test_result", "best_valid_result"):
+            if json.dumps(res[key], sort_keys=True) != json.dumps(ref[key], sort_keys=True):
+                fail(f"parallel: {key} {res[key]} over the mesh, {ref[key]} without")
+        print(f"parallel: mesh [1, 1] = meshless: losses {trainer.train_loss_dict}; "
+              f"epochs {rec['epoch_s']} s against {ref_rec['epoch_s']} s; {card}", flush=True)
+
+        # the shards through the kernel's shard mode, merged, against the
+        # plain version over the whole table (PAD not masked)
+        s_p, i_p = streaming_topk_scores(U, T, k, mask_pad=False)
+        rows = table.shape[0] // PARALLEL_SHARDS
+        parts = [local_candidates(U, table[j * rows:(j + 1) * rows], k, j * rows, n_valid)
+                 for j in range(PARALLEL_SHARDS)]
+        s_m, i_m = merge_candidates([p[0] for p in parts], [p[1] for p in parts], k,
+                                    table.shape[0])
+        err_m, near_m = _compare_topk("4 shards merged", U, T, k, s_m, i_m, s_p, i_p,
+                                      pad_masked=False)
+        err_w, near_w = _compare_topk("world of one", U, T, k, s_w, i_w, s_p, i_p,
+                                      pad_masked=False)
+        row = _shard_row(mod, U, table[rows:2 * rows].contiguous(), k, rows, card)
+        row.update(merged_max_abs_err=err_m, merged_near_tie_swaps=near_m,
+                   world_max_abs_err=err_w, world_near_tie_swaps=near_w)
+        print(f"kernel: fused_topk {json.dumps(row)}", flush=True)
+
+        gen = torch.Generator(device="cuda").manual_seed(2020)
+        a = torch.rand((FAIRGO_NODES, FAIRGO_NODES), generator=gen, device="cuda")
+        a = torch.where(a < 0.018, a, torch.zeros((), device="cuda"))
+        a = a / (a.sum(dim=1, keepdim=True) + 1e-7)
+        x = torch.randn((FAIRGO_NODES, T.shape[1]), generator=gen, device="cuda")
+        hop = sharded_propagate(mesh, shard_propagation_matrix(mesh, a), x)
+        if not torch.equal(hop, propagate(x, None, None, None, FAIRGO_NODES, dense=a)):
+            fail("parallel: sharded_propagate differs from propagate")
+        items = trainer.model.item_embedding.weight.detach()
+        ids = torch.randint(0, items.shape[0], (U.shape[0],), generator=gen, device="cuda")
+        if not torch.equal(bucket_allgather_lookup(mesh, items, ids), items[ids]):
+            fail("parallel: bucket_allgather_lookup differs from table[ids]")
+        print(f"parallel: sharded_propagate (n {FAIRGO_NODES}, d {T.shape[1]}) = propagate, "
+              f"bucket_allgather_lookup = table[ids]; launches on the main path {launches}; "
+              f"{card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches, row
+
+
 def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
     """The registry's trainer for ``model``, on the card with every
     parameter and buffer (FairGo's propagation matrices included): a
@@ -2327,9 +2487,10 @@ def _library_topk(U, T, k):
     return torch.topk(s, k, dim=1)
 
 
-def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p):
+def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offset=0):
     """A kernel's top-k' (``s_k``, ``i_k``) against the plain version's on the
-    same inputs; returns (max_abs_err, near-tie swaps).
+    same inputs; returns (max_abs_err, near-tie swaps). ``pad_masked=False``
+    (the shard mode) allows item 0; indices are ``col_offset`` + row of T.
 
     Tolerance: a float32 dot product of length d summed in any order is
     within d * 2^-24 * sum|u_j t_j| of the exact value, so two orders differ
@@ -2350,10 +2511,10 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p):
         fail(f"fused_topk[{label}]: -inf slots differ")
     if bool((i_k[inf_k] != 0).any()):
         fail(f"fused_topk[{label}]: a -inf slot carries an index other than 0")
-    if bool((i_k[~inf_k] == 0).any()):
+    if pad_masked and bool((i_k[~inf_k] == 0).any()):
         fail(f"fused_topk[{label}]: the PAD item 0 was selected")
     fin = ~inf_p
-    i_safe = i_p.long().clamp_min(0)
+    i_safe = (i_p.long() - col_offset).clamp_min(0)
     abs_dot = torch.gather(U.abs() @ T.abs().T, 1, i_safe)
     tol = 2 * d * 2.0 ** -24 * abs_dot
     diff = (s_k - s_p).abs()
@@ -2472,7 +2633,12 @@ def main():
                                  (U, T, k_prime))
     print(f"resident: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 9: every kernel against its plain version
+    # phase 9: the parallel layer on a world of one
+    t0 = time.perf_counter()
+    parallel_launches, shard_row = parallel(data_root, work, card, (U, T, k_prime))
+    print(f"parallel: phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 10: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     gen = torch.Generator().manual_seed(2020)
     rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)] + adv_rows
@@ -2494,16 +2660,19 @@ def main():
     by_path = {k["name"]: {"serve": launches[k["name"]], "train": train_launches[k["name"]],
                            **adv_launches, "published": published_launches[k["name"]],
                            "fairgo": fairgo_launches[k["name"]],
-                           "resident": resident_launches[k["name"]]} for k in KERNELS}
+                           "resident": resident_launches[k["name"]],
+                           "parallel": parallel_launches[k["name"]]} for k in KERNELS}
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
         "launches": sum(by_path[k["name"]].values()),
         "launches_by_path": by_path[k["name"]],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + [shard_row]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "shard_mode": {key: shard_row[key] for key in (
+            "B", "I", "k", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for k in KERNELS]
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -9,6 +9,13 @@
 // (-inf, 0). Where k' is small against the chunk, the [B, I] score matrix is
 // never written to device memory.
 //
+// Shard mode (the local stage of the item-sharded top-k,
+// recbole_fairrec_tpu_torch/parallel/eval.py): T is rows [col_offset,
+// col_offset + I) of a larger table; mask_pad = 0 leaves its row 0 (not the
+// catalog's PAD) selectable, and col_offset is added to the index of every
+// selected item. Slots without an item still hold (-inf, 0). The default
+// call (col_offset 0, mask_pad 1) is the kernel above, unchanged.
+//
 // What bounds it on an H100. At the serving shape (B 6144, I 3630, d 64,
 // k' 173) the products are 2*B*I*d = 2.855 GFLOP of plain f32 FMA on the
 // CUDA cores: 42.6 us at the 67 TFLOP/s non-tensor f32 peak. The bytes
@@ -79,7 +86,7 @@
 //   int fused_topk_max_smem()  -> opt-in shared memory per block, bytes
 //   int fused_topk_launch(U, T, scratch, out_s, out_i, B, I, d, k, chunk, S,
 //                         n, Kp, team, keys_in_smem, vec, smem1, smem2,
-//                         stream)
+//                         col_offset, mask_pad, stream)
 //     -> cudaGetLastError() code of the first launch that failed, else 0
 
 #include <cuda_runtime.h>
@@ -195,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
                     unsigned long long* __restrict__ lists, unsigned* __restrict__ bounds,
                     int B, int I, int d,
-                    int k, int chunk) {
+                    int k, int chunk, int mask_pad) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // layout: us[kBM][ustride] | ring[kStages][kBN][kTStride] | keys[kBM][kstride]
   const int dpad = (d + kBK - 1) / kBK * kBK;
@@ -301,7 +308,7 @@ score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
         for (int j = 0; j < kTN; ++j) {
           const int col = tile * kBN + wi + 8 * j;
           keys[(wu + 4 * i) * kstride + col] =
-              (c0 + col == 0) ? kNegInfKey : order_key(acc[i][j]);
+              (mask_pad && c0 + col == 0) ? kNegInfKey : order_key(acc[i][j]);
           acc[i][j] = 0.0f;
         }
       }
@@ -547,7 +554,7 @@ template <int TEAM, int R>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const unsigned long long* __restrict__ lists, const unsigned* __restrict__ bounds,
              float* __restrict__ out_s, int* __restrict__ out_i, int B, int kout, int S,
-             int per_user, int n, int keys_in_smem) {
+             int per_user, int n, int keys_in_smem, int col_offset) {
   constexpr int kTeams = kThreads / TEAM;
   constexpr int kTeamWarps = TEAM / 32;
   constexpr int Kp = TEAM * R;
@@ -687,7 +694,7 @@ merge_kernel(const unsigned long long* __restrict__ lists, const unsigned* __res
       int item = 0;
       if (j < k && v[r] != ~0ull) {
         s = key_score(~static_cast<unsigned>(v[r] >> 32));
-        item = (s == neg_inf) ? 0 : static_cast<int>(ents[v[r] & 0xffffffffu] >> 32);
+        item = (s == neg_inf) ? 0 : static_cast<int>(ents[v[r] & 0xffffffffu] >> 32) + col_offset;
       }
       out_s[o + j] = s;
       out_i[o + j] = item;
@@ -718,13 +725,13 @@ cudaError_t set_smem(long long smem) {
 template <int TEAM, int R>
 cudaError_t launch_merge(const unsigned long long* ls, const unsigned* bd, float* os, int* oi,
                          int B, int k,
-                         int S, int per_user, int n, int keys_in_smem, long long smem,
-                         cudaStream_t st) {
+                         int S, int per_user, int n, int keys_in_smem, int col_offset,
+                         long long smem, cudaStream_t st) {
   const cudaError_t err = set_smem<merge_kernel<TEAM, R>>(smem);
   if (err != cudaSuccess) return err;
   constexpr int kTeams = kThreads / TEAM;
   merge_kernel<TEAM, R><<<(B + kTeams - 1) / kTeams, kThreads, smem, st>>>(
-      ls, bd, os, oi, B, k, S, per_user, n, keys_in_smem);
+      ls, bd, os, oi, B, k, S, per_user, n, keys_in_smem, col_offset);
   return cudaGetLastError();
 }
 
@@ -744,7 +751,7 @@ int fused_topk_max_smem() {
 
 int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, void* out_i, int B, int I, int d, int k, int chunk, int S,
                       int n, int Kp, int team, int keys_in_smem, int vec, long long smem1,
-                      long long smem2, void* stream) {
+                      long long smem2, int col_offset, int mask_pad, void* stream) {
   const int lmax = list_len(k, chunk);
   const int last = I - (S - 1) * chunk;
   if (B <= 0 || I <= 0 || d <= 0 || k <= 0 || chunk <= 0 || chunk % kBN != 0 ||
@@ -768,11 +775,11 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
   if (vec) {
     err = set_smem<score_select_kernel<true>>(smem1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    score_select_kernel<true><<<grid1, kThreads, smem1, st>>>(u, t, ls, bd, B, I, d, k, chunk);
+    score_select_kernel<true><<<grid1, kThreads, smem1, st>>>(u, t, ls, bd, B, I, d, k, chunk, mask_pad);
   } else {
     err = set_smem<score_select_kernel<false>>(smem1);
     if (err != cudaSuccess) return static_cast<int>(err);
-    score_select_kernel<false><<<grid1, kThreads, smem1, st>>>(u, t, ls, bd, B, I, d, k, chunk);
+    score_select_kernel<false><<<grid1, kThreads, smem1, st>>>(u, t, ls, bd, B, I, d, k, chunk, mask_pad);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -781,18 +788,18 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
   const int ks = keys_in_smem;
   if (team == 32) {
     switch (Kp) {
-      case 32: err = launch_merge<32, 1>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
-      case 64: err = launch_merge<32, 2>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
-      case 128: err = launch_merge<32, 4>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
-      case 256: err = launch_merge<32, 8>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
-      case 512: err = launch_merge<32, 16>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
+      case 32: err = launch_merge<32, 1>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
+      case 64: err = launch_merge<32, 2>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
+      case 128: err = launch_merge<32, 4>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
+      case 256: err = launch_merge<32, 8>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
+      case 512: err = launch_merge<32, 16>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else if (team == kThreads) {
     switch (Kp) {
-      case 1024: err = launch_merge<kThreads, 4>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
-      case 2048: err = launch_merge<kThreads, 8>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
-      case 4096: err = launch_merge<kThreads, 16>(ls, bd, os, oi, B, k, S, pu, n, ks, smem2, st); break;
+      case 1024: err = launch_merge<kThreads, 4>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
+      case 2048: err = launch_merge<kThreads, 8>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
+      case 4096: err = launch_merge<kThreads, 16>(ls, bd, os, oi, B, k, S, pu, n, ks, col_offset, smem2, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {

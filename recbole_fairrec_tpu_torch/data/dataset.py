@@ -28,7 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..utils import FeatureSource, FeatureType, ensure_dir, set_color
+from ..utils import FeatureSource, FeatureType, ensure_dir, pickle_to, set_color
 from .interaction import Interaction
 
 
@@ -1066,9 +1066,7 @@ class Dataset:
     def save(self):
         save_dir = self.config["checkpoint_dir"]
         ensure_dir(save_dir)
-        path = os.path.join(save_dir, f'{self.config["dataset"]}-Dataset-torch.pkl')
-        with open(path, "wb") as f:
-            pickle.dump(self, f)
+        pickle_to(os.path.join(save_dir, f'{self.config["dataset"]}-Dataset-torch.pkl'), self)
 
     def __getstate__(self):
         state = dict(self.__dict__)

@@ -16,7 +16,7 @@ import pickle
 from logging import getLogger
 
 from ..sampler import RepeatableSampler, Sampler
-from ..utils import ensure_dir, set_color
+from ..utils import ensure_dir, pickle_to, set_color
 from .dataloader import (
     AbstractDataLoader,
     FOCFDataLoader,
@@ -66,8 +66,7 @@ def save_split_dataloaders(config, dataloaders):
         config["checkpoint_dir"], f'{config["dataset"]}-for-{config["model"]}-dataloader-torch.pkl'
     )
     getLogger().info(set_color("Saving split dataloaders into", "pink") + f": [{path}]")
-    with open(path, "wb") as f:
-        pickle.dump(dataloaders, f)
+    pickle_to(path, dataloaders)
 
 
 def load_split_dataloaders(config):

@@ -12,6 +12,13 @@ only the batch:
 ``batch`` is a dict of tensors on the model's device. Parameter names match
 the JAX param-tree keys (``user_embedding`` …) so a JAX checkpoint loads with
 ``utils.jax_params.load_jax_params``.
+
+Under a mesh (``parallel/``; the trainer calls ``parallel.shard_params``) a
+model holds only its rank's rows of the row-sharded tables
+(``row_shards``): :meth:`FairRecommender.lookup` goes through the exchange
+and :meth:`FairRecommender.full_weight` gathers a whole table, and while a
+batch is split over the data axis :func:`wmean` is the mean of the whole
+batch.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.collectives import batch_rows, batch_sum, gather_rows
 from ..utils import InputType, ModelType, set_color
 
 
@@ -32,10 +40,14 @@ def batch_weights(batch):
 
 def wmean(values, weights):
     """Mean of ``values`` weighted by ``weights``; the plain mean when
-    ``weights`` is None."""
+    ``weights`` is None. Over the whole batch while it is split over the
+    data axis (``parallel/collectives.py``)."""
     if weights is None:
-        return values.mean()
-    return torch.sum(values * weights) / torch.sum(weights).clamp_min(1.0)
+        n = batch_rows(values.numel())
+        if n == values.numel():
+            return values.mean()
+        return batch_sum(values.sum()) / n
+    return batch_sum(torch.sum(values * weights)) / batch_sum(torch.sum(weights)).clamp_min(1.0)
 
 
 class AbstractRecommender(nn.Module):
@@ -96,11 +108,16 @@ class FairRecommender(AbstractRecommender):
         self._seed = int(config["seed"] or 0)
         self._dropout_generators = {}
         self._device_copies = {}
-        # float32 means float32: the ranking paths never run in TF32
-        if config["compute_dtype"] not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype [{config['compute_dtype']}] is not ported yet"
-            )
+        # float32 means float32: the ranking paths never run in TF32.
+        # compute_dtype: bfloat16 opts the full-sort score products into
+        # bfloat16 operands with float32 accumulation (parameters stay f32)
+        if config["compute_dtype"] not in (None, "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype [{config['compute_dtype']}] is not supported")
+        self.compute_dtype = (
+            torch.bfloat16 if config["compute_dtype"] == "bfloat16" else torch.float32
+        )
+        self.mesh = None
+        self.row_shards = {}  # set by parallel.shard_params
 
     def calculate_dis_loss(self, batch, sst_list=None):
         """Discriminator objective for adversarial models."""
@@ -137,10 +154,42 @@ class FairRecommender(AbstractRecommender):
             self._device_copies[key] = tensor.to(device)
         return self._device_copies[key]
 
-    @staticmethod
-    def lookup(table: nn.Embedding, ids):
-        """Embedding-table row lookup."""
-        return table(ids)
+    def _row_shard(self, table):
+        for name, shard in self.row_shards.items():
+            if getattr(self, name) is table:
+                return shard
+        return None
+
+    def lookup(self, table: nn.Embedding, ids):
+        """Embedding-table row lookup; the exchange over the model axis for
+        a row-sharded table (``parallel.embedding.sharded_gather``)."""
+        if self._row_shard(table) is None:
+            return table(ids)
+        from ..parallel.embedding import sharded_gather
+
+        return sharded_gather(self.mesh, table.weight, ids)
+
+    def full_weight(self, table: nn.Embedding):
+        """The whole table: the weight, or for a row-sharded table its rows
+        gathered over the model axis (differentiable)."""
+        shard = self._row_shard(table)
+        if shard is None:
+            return table.weight
+        return gather_rows(table.weight, self.mesh.group(shard.axis),
+                           self.mesh.index(shard.axis))
+
+    def score_matmul(self, a, b):
+        """``a @ b`` of a full-sort score: float32, or under ``compute_dtype:
+        bfloat16`` bfloat16 operands into a float32 product
+        (``torch.mm(..., out_dtype=float32)`` on the card; on the CPU, which
+        has no kernel for it, the bfloat16 operands widened to float32,
+        whose products are exact there)."""
+        if self.compute_dtype != torch.bfloat16:
+            return a @ b
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
 
     def get_sst_embed(self, user_data, sst_list=None):
         raise NotImplementedError

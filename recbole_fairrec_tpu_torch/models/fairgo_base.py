@@ -150,7 +150,8 @@ class FairGoBase(FairRecommender):
 
     def _ego_embeddings(self, train):
         """Backbone representation of all U+I nodes (stage-aware)."""
-        return torch.cat([self.user_embedding.weight, self.item_embedding.weight], dim=0)
+        return torch.cat([self.full_weight(self.user_embedding),
+                          self.full_weight(self.item_embedding)], dim=0)
 
     def forward(self, sst_list=None, train=False):
         """(user table, item table): the backbone's, filtered in finetune."""
@@ -250,7 +251,7 @@ class FairGoBase(FairRecommender):
 
     def full_sort_predict(self, batch, sst_list=None):
         user_all, item_all = self.forward(tuple(self.sst_attrs))
-        return self._clamped(user_all[batch[self.USER_ID]] @ item_all.T)
+        return self._clamped(self.score_matmul(user_all[batch[self.USER_ID]], item_all.T))
 
     @torch.no_grad()
     def get_sst_embed(self, user_data, sst_list=None):

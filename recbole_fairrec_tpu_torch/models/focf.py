@@ -8,13 +8,15 @@ over item × group mean matrices, and predictions clamped to
 The item × group means are sums over ``n_items × n_groups`` segments
 (``index_add_``) with a presence mask for the items the batch holds and a
 count offset of 1e-5, as in the JAX package; the item-grouped FOCF loader
-gives each batch every row of its items.
+gives each batch every row of its items. Under a batch split over the data
+axis the segment sums are those of the whole batch (``parallel/``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import batch_sum
 from ..utils import InputType
 from .base import FairRecommender, batch_weights, wmean
 from .layers import init_embedding
@@ -65,7 +67,8 @@ class FOCF(FairRecommender):
 
         def segment_sum(values):
             out = torch.zeros(n_seg, dtype=values.dtype, device=values.device)
-            return out.index_add_(0, seg, values).reshape(self.n_items, self.n_groups)
+            out = batch_sum(out.index_add_(0, seg, values))
+            return out.reshape(self.n_items, self.n_groups)
 
         pred_sum = segment_sum(pred_scores * w)
         true_sum = segment_sum(batch[self.RATING].float() * w)
@@ -79,8 +82,10 @@ class FOCF(FairRecommender):
             groups = self._groups(batch)
             mask0 = (groups == 0).to(pred_scores.dtype) * w
             mask1 = (groups == 1).to(pred_scores.dtype) * w
-            avg0 = torch.sum(pred_scores * mask0) / mask0.sum().clamp_min(1.0)
-            avg1 = torch.sum(pred_scores * mask1) / mask1.sum().clamp_min(1.0)
+            avg0 = (batch_sum(torch.sum(pred_scores * mask0))
+                    / batch_sum(mask0.sum()).clamp_min(1.0))
+            avg1 = (batch_sum(torch.sum(pred_scores * mask1))
+                    / batch_sum(mask1.sum()).clamp_min(1.0))
             return smooth_l1_loss(avg0, avg1)
 
         avg_pred, avg_true, present = self._item_group_means(pred_scores, batch, w)
@@ -115,5 +120,5 @@ class FOCF(FairRecommender):
 
     def full_sort_predict(self, batch, sst_list=None):
         user_e = self.lookup(self.user_embedding, batch[self.USER_ID])
-        scores = user_e @ self.item_embedding.weight.T
+        scores = self.score_matmul(user_e, self.full_weight(self.item_embedding).T)
         return scores.clamp(0.0, self.max_rating).reshape(-1) / self.max_rating

@@ -16,7 +16,9 @@ included. BatchNorm is a function over those tensors, not
 0.1, the variance unbiased with the divisor ``max(n − 1, 1)``, so a one-row
 batch gives ``beta``; at eval it uses the running statistics, or per-segment
 statistics in the reference-defect emulation mode
-(``reference_bn_eval_emulation``).
+(``reference_bn_eval_emulation``). While a batch is split over the data axis
+(``parallel/``), the training statistics and the dropout masks are those of
+the whole batch, as under the JAX package's SPMD ``jit``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..parallel.collectives import active_batch_split, batch_rand, batch_rows, batch_sum
 
 
 def xavier_normal(generator, fan_in, fan_out):
@@ -139,6 +143,22 @@ def _segment_stats(x, segments, num_segments):
     return mean[segments], var[segments].clamp_min(0.0)
 
 
+def _split_stats(x, sample_weight):
+    """Mean, biased and unbiased variance of the rows of the whole batch
+    (this rank holds some of them), weighted by ``sample_weight`` when
+    given; differentiable, as ``SyncBatchNorm``'s."""
+    if sample_weight is not None:
+        w = sample_weight.to(x.dtype)[:, None]
+        n = batch_sum(torch.sum(w)).clamp_min(1.0)
+        mean = batch_sum(torch.sum(x * w, dim=0)) / n
+        var = batch_sum(torch.sum(w * (x - mean) ** 2, dim=0)) / n
+        return mean, var, var * n / (n - 1.0).clamp_min(1.0)
+    n = batch_rows(x.shape[0])
+    mean = batch_sum(x.sum(dim=0)) / n
+    var = batch_sum(((x - mean) ** 2).sum(dim=0)) / n
+    return mean, var, var * n / max(n - 1, 1)
+
+
 def batch_norm(bn, x, train, sample_weight=None, segments=None, num_segments=None,
                momentum=0.1, eps=1e-5):
     """BatchNorm over the rows of ``x`` with ``bn``'s tensors; in training
@@ -149,7 +169,9 @@ def batch_norm(bn, x, train, sample_weight=None, segments=None, num_segments=Non
         # neither read nor moved
         mean, var = _segment_stats(x, segments, num_segments)
     elif train:
-        if sample_weight is not None:
+        if active_batch_split() is not None:
+            mean, var, unbiased = _split_stats(x, sample_weight)
+        elif sample_weight is not None:
             w = sample_weight.to(x.dtype)[:, None]
             n = torch.sum(w).clamp_min(1.0)
             mean = torch.sum(x * w, dim=0) / n
@@ -189,7 +211,7 @@ class MLP(nn.Module):
         keep = 1.0 - dropout
         for i, lin in enumerate(self.linear):
             if train and dropout > 0.0:
-                mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                mask = batch_rand(x.shape, generator, x.device) < keep
                 x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
             x = lin(x)
             if self.bn is not None:

@@ -16,7 +16,8 @@ in two stages:
   |log p_i − log p_j| between groups, averaged over the items present.
 
 The penalty's per-item group sums are ``index_add_`` over
-``n_items × n_groups`` segments with an item-presence mask. Dropout masks
+``n_items × n_groups`` segments with an item-presence mask (those of the
+whole batch under a batch split over the data axis, ``parallel/``). Dropout masks
 come from the model's generator (``dropout_generator``).
 """
 
@@ -25,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.collectives import batch_sum
 from ..utils import InputType
 from .base import FairRecommender, batch_weights, wmean
 from .layers import MLP, init_embedding
@@ -101,7 +103,8 @@ class NFCF(FairRecommender):
 
         def segment_sum(values):
             out = torch.zeros(n_seg, dtype=values.dtype, device=values.device)
-            return out.index_add_(0, seg, values).reshape(self.n_items, self.n_groups)
+            out = batch_sum(out.index_add_(0, seg, values))
+            return out.reshape(self.n_items, self.n_groups)
 
         score_sum = segment_sum(score * pos_w)
         counts = segment_sum(pos_w)
@@ -137,7 +140,7 @@ class NFCF(FairRecommender):
     def full_sort_predict(self, batch, sst_list=None):
         """Every user of the batch against every item through the MLP."""
         u = self.lookup(self.user_embedding, batch[self.USER_ID])
-        items = self.item_embedding.weight
+        items = self.full_weight(self.item_embedding)
         uu = u.repeat_interleave(self.n_items, dim=0)
         ii = items.repeat(u.shape[0], 1)
         out = self.mlp(torch.cat([uu, ii], dim=-1), activation="relu")

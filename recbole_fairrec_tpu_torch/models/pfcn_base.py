@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.collectives import batch_rows, batch_sum, gather_batch
 from ..utils import InputType
 from .base import FairRecommender, batch_weights, wmean
 from .layers import MLP
@@ -185,11 +186,14 @@ class PFCNBase(FairRecommender):
         )
         elem = -torch.log(1e-10 + torch.sigmoid(pos_s - neg_s))
         if w is None:
-            loss = elem.mean()
+            if batch_rows(1) == 1:
+                loss = elem.mean()
+            else:  # split over the data axis: rows here, columns the whole batch's
+                loss = wmean(elem.mean(dim=-1) if elem.dim() == 2 else elem, None)
         elif elem.dim() == 2:
             # [B, B] cross-pair scores (PFCN_BiasedMF): each pair weighs w_i·w_j
-            w2 = w[:, None] * w[None, :]
-            loss = torch.sum(elem * w2) / torch.sum(w2).clamp_min(1.0)
+            w2 = w[:, None] * gather_batch(w)[None, :]
+            loss = batch_sum(torch.sum(elem * w2)) / batch_sum(torch.sum(w2)).clamp_min(1.0)
         else:
             loss = wmean(elem, w)
         if self.filter_mode != "none":

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.collectives import gather_batch
 from .layers import init_embedding
 from .pfcn_base import PFCNBase
 
@@ -43,15 +44,16 @@ class PFCN_BiasedMF(PFCNBase):
         """The reference's quirk, reproduced: the [B] dot scores are summed
         with the [B, 1] biases, so the sum broadcasts to [B, B] — element
         (i, j) = dot(j) + b_u(i) + b_item(i) + b_g — and BPR averages over
-        all B² cross pairs."""
+        all B² cross pairs. Under a data split the rows are this rank's and
+        the columns the whole batch's."""
         user_e, pos_e = self._user_item_embed(user, pos_item, sst_list, train, sample_weight)
         neg_e = self.lookup(self.item_embedding, neg_item)
         user_b = self.user_bias(user)  # [B, 1]
         gb = self.global_bias
         pos_dot = (user_e * pos_e).sum(-1)
         neg_dot = (user_e * neg_e).sum(-1)
-        pos_s = pos_dot[None, :] + user_b + self.item_bias(pos_item) + gb
-        neg_s = neg_dot[None, :] + user_b + self.item_bias(neg_item) + gb
+        pos_s = gather_batch(pos_dot)[None, :] + user_b + self.item_bias(pos_item) + gb
+        neg_s = gather_batch(neg_dot)[None, :] + user_b + self.item_bias(neg_item) + gb
         return pos_s, neg_s
 
     def predict(self, batch, sst_list=None):
@@ -67,12 +69,13 @@ class PFCN_BiasedMF(PFCNBase):
         b_u + b_g, so the per-user ranking is identical."""
         user_e, _ = self._user_item_embed(batch[self.USER_ID], None, sst_list)
         u = torch.cat([user_e, torch.ones_like(user_e[:, :1])], dim=1)
-        t = torch.cat([self.item_embedding.weight, self.item_bias.weight], dim=1)
+        t = torch.cat([self.full_weight(self.item_embedding), self.item_bias.weight], dim=1)
         return u, t
 
     def full_sort_predict(self, batch, sst_list=None):
         user = batch[self.USER_ID]
         user_e, _ = self._user_item_embed(user, None, sst_list)
-        scores = (user_e @ self.item_embedding.weight.T + self.user_bias(user)
+        items = self.full_weight(self.item_embedding)
+        scores = (self.score_matmul(user_e, items.T) + self.user_bias(user)
                   + self.item_bias.weight[:, 0][None, :] + self.global_bias)
         return torch.sigmoid(scores).reshape(-1)

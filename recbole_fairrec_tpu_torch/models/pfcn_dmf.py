@@ -80,7 +80,7 @@ class PFCN_DMF(PFCNBase):
     def retrieval_embeddings(self, batch, sst_list=None):
         """Unit tower outputs: their dot product is the cosine."""
         user_e, _ = self._user_item_embed(batch[self.USER_ID], None, sst_list)
-        items = self._tower(self.item_mlp, self.item_embedding.weight, False)
+        items = self._tower(self.item_mlp, self.full_weight(self.item_embedding), False)
         return _unit(user_e), _unit(items)
 
     def full_sort_predict(self, batch, sst_list=None):

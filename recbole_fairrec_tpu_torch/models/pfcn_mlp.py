@@ -64,7 +64,7 @@ class PFCN_MLP(PFCNBase):
         in blocks of whole users (each row is scored on its own, so the
         blocking changes no score)."""
         user_e, _ = self._user_item_embed(batch[self.USER_ID], None, sst_list)
-        items = self.item_embedding.weight
+        items = self.full_weight(self.item_embedding)
         n_items = items.shape[0]
         per_block = max(1, _SCORE_ROWS // n_items)
         out = []

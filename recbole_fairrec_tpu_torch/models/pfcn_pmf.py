@@ -53,8 +53,9 @@ class PFCN_PMF(PFCNBase):
         """(user_repr, item_table) whose dot product ranks identically to
         full_sort_predict (sigmoid is strictly monotone)."""
         user_e, _ = self._user_item_embed(batch[self.USER_ID], None, sst_list)
-        return user_e, self.item_embedding.weight
+        return user_e, self.full_weight(self.item_embedding)
 
     def full_sort_predict(self, batch, sst_list=None):
         user_e, _ = self._user_item_embed(batch[self.USER_ID], None, sst_list)
-        return torch.sigmoid(user_e @ self.item_embedding.weight.T).reshape(-1)
+        items = self.full_weight(self.item_embedding)
+        return torch.sigmoid(self.score_matmul(user_e, items.T)).reshape(-1)

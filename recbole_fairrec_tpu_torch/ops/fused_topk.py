@@ -8,6 +8,11 @@ best items of every row of ``user_emb @ item_table.T`` as
 descending, item index ascending), with item 0 ([PAD]) never selected and
 a slot without an item holding (−inf, 0).
 
+Shard mode (the local stage of ``parallel.eval.distributed_topk_scores``):
+``col_offset`` is added to the index of every selected item (the table is
+rows ``[col_offset, col_offset + I)`` of a larger one) and ``mask_pad=False``
+leaves column 0 selectable. The defaults are the call above, unchanged.
+
 A CUDA tensor goes to the kernel (or the call raises); a CPU tensor goes to
 the plain version, ``fused_topk_scores_reference``. There is no fallback
 between the two. The kernel is compiled with ``nvcc`` for ``sm_90a`` into
@@ -96,7 +101,8 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
@@ -193,10 +199,12 @@ def launch_plan(n_users, n_items, d, smem_limit, n_sm):
     return Plan(BM, chunk, _ceil_div(n_items, chunk), smem_bytes(d, chunk))
 
 
-def fused_topk_scores_reference(user_emb, item_table, top_k):
+def fused_topk_scores_reference(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
     """Plain version: f32 ``user_emb @ item_table.T`` in item tiles, column 0
-    masked, stable descending sort, first k'; −inf slots carry index 0."""
-    scores, idx = streaming_topk_scores(user_emb, item_table, top_k, mask_pad=True)
+    masked (``mask_pad``), stable descending sort, first k', indices offset
+    by ``col_offset``; −inf slots carry index 0."""
+    scores, idx = streaming_topk_scores(user_emb, item_table, top_k, mask_pad=mask_pad,
+                                        col_offset=col_offset)
     idx = torch.where(torch.isneginf(scores), torch.zeros_like(idx), idx)
     return scores, idx
 
@@ -220,7 +228,7 @@ def _launch_args(device, B, I, d, top_k):
     return args
 
 
-def _launch(user_emb, item_table, out_s, out_i, top_k):
+def _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad):
     (B, d), device = user_emb.shape, user_emb.device
     words, shape, smem = _launch_args(device, B, item_table.shape[0], d, top_k)
     scratch = torch.empty(words, dtype=torch.int64, device=device)
@@ -229,11 +237,12 @@ def _launch(user_emb, item_table, out_s, out_i, top_k):
     # the raw handle of the current stream, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     return _lib().fused_topk_launch(
-        u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem, stream
+        u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem,
+        int(col_offset), int(mask_pad), stream,
     )
 
 
-def fused_topk_scores(user_emb, item_table, top_k):
+def fused_topk_scores(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
     """Top-k' of ``user_emb @ item_table.T`` per row; see the module doc."""
     global launches
     if user_emb.dim() != 2 or item_table.dim() != 2 or user_emb.shape[1] != item_table.shape[1]:
@@ -245,7 +254,7 @@ def fused_topk_scores(user_emb, item_table, top_k):
         raise ValueError(f"fused_topk: k'={top_k} is outside [1, {MAX_K}]")
     device, t_device = user_emb.device, item_table.device
     if device.type == "cpu" and t_device.type == "cpu":
-        return fused_topk_scores_reference(user_emb, item_table, top_k)
+        return fused_topk_scores_reference(user_emb, item_table, top_k, col_offset, mask_pad)
     if device.type != "cuda" or t_device != device:
         raise ValueError(
             f"fused_topk: tensors on {device} and {t_device}; "
@@ -259,15 +268,17 @@ def fused_topk_scores(user_emb, item_table, top_k):
     I = item_table.shape[0]
     if I == 0:
         raise ValueError("fused_topk: the item table is empty")
+    if not 0 <= col_offset <= 2**31 - 1 - I:
+        raise ValueError(f"fused_topk: col_offset {col_offset} puts indices past int32")
     out_s = torch.empty((B, top_k), dtype=torch.float32, device=device)
     out_i = torch.empty((B, top_k), dtype=torch.int32, device=device)
     if B == 0:
         return out_s, out_i
     if device.index != torch.cuda.current_device():  # the C side launches on the current one
         with torch.cuda.device(device):
-            err = _launch(user_emb, item_table, out_s, out_i, top_k)
+            err = _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad)
     else:
-        err = _launch(user_emb, item_table, out_s, out_i, top_k)
+        err = _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad)
     if err != 0:
         raise RuntimeError(f"fused_topk: kernel launch failed with CUDA error {err}")
     launches += 1

@@ -54,7 +54,7 @@ def _highest_precision():
         torch.set_float32_matmul_precision(saved)
 
 
-def _mm(a, b):
+def matmul_f32(a, b):
     """``a @ b`` into float32: float32 operands at full precision; for a
     bfloat16 ``a``, bfloat16 operands."""
     with _highest_precision():
@@ -67,7 +67,7 @@ def _mm(a, b):
 
 class _Propagate(torch.autograd.Function):
     """``dense @ x``, differentiable in ``x`` (``aten::mm.dtype`` has no
-    derivative), with the gradient ``dense.T @ grad`` taken by ``_mm`` as
+    derivative), with the gradient ``dense.T @ grad`` taken by ``matmul_f32`` as
     well, so that it too runs at the pinned precision. For a bfloat16
     ``dense`` the float32 gradient is rounded to bfloat16 by autograd as
     ``x``'s type asks, as the JAX package's transpose of its mixed-precision
@@ -77,12 +77,12 @@ class _Propagate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dense, x):
         ctx.save_for_backward(dense)
-        return _mm(dense, x)
+        return matmul_f32(dense, x)
 
     @staticmethod
     def backward(ctx, grad):
         (dense,) = ctx.saved_tensors
-        return None, _mm(dense.t(), grad)
+        return None, matmul_f32(dense.t(), grad)
 
 
 def propagate(x, rows, cols, vals, n, dense=None):

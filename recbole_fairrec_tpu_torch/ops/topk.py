@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 
 
-def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False):
+def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False,
+                          col_offset=0):
     """Top-k of ``user_emb @ item_table.T`` without materializing all scores.
 
     Args:
@@ -32,10 +33,12 @@ def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False
         top_k: k.
         tile: item-tile width.
         mask_pad: exclude the [PAD] item (row 0).
+        col_offset: added to every item index (the table is rows
+            ``[col_offset, col_offset + I)`` of a larger one).
 
     Returns:
         (topk_scores [B, k] float32, topk_idx [B, k] int32). Slots beyond the
-        number of selectable items hold (−inf, 0).
+        number of items hold (−inf, 0).
     """
     B = user_emb.shape[0]
     I = item_table.shape[0]
@@ -45,7 +48,7 @@ def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False
     for col0 in range(0, I, tile):
         block = item_table[col0 : col0 + tile]
         scores = (user_emb.float() @ block.float().T).to(torch.float32)
-        idx = torch.arange(col0, col0 + block.shape[0], device=device)
+        idx = torch.arange(col0, col0 + block.shape[0], device=device) + col_offset
         if mask_pad and col0 == 0:
             scores[:, 0] = float("-inf")
         cat_s = torch.cat([best_s, scores], dim=1)

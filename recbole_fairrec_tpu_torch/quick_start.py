@@ -6,7 +6,10 @@ trains a model from a config, reloads the best checkpoint and tests it;
 serving entry point is ``load_data_and_model(model_file)`` followed by
 ``trainer.evaluate(test_data)``; it reads checkpoints written by this
 package or by the JAX package. Every entry point runs on the card unless
-the config says ``use_gpu: False``.
+the config says ``use_gpu: False``. ``init_multihost`` starts
+``torch.distributed`` for a run over several processes (``multihost:
+True``); ``run_recbole`` calls it before anything else of the run, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -63,12 +66,40 @@ def load_checkpoint(model_file):
         return _CheckpointUnpickler(f).load()
 
 
-def _refuse_multihost(config):
-    if config["multihost"]:
-        raise NotImplementedError(
-            "multihost (several processes over one device set) comes with the "
-            "parallel layer of the port"
-        )
+def init_multihost(config_dict=None):
+    """Start the default process group of a run over several processes, one
+    per device; the counterpart of the JAX package's
+    ``jax.distributed.initialize`` bootstrap, with its return contract.
+
+    Off (False) unless ``config_dict['multihost']`` is set; a no-op (True)
+    where the group already exists. ``coordinator_address`` ``"host:port"``
+    becomes ``tcp://host:port`` (an address with a scheme, such as
+    ``file://<path>``, is used as it is), ``num_processes`` the world size
+    and ``process_id`` the rank; without a coordinator the group reads
+    torchrun's environment (``env://``). The backend is NCCL on the card,
+    with ``LOCAL_RANK`` (else the rank) choosing the card, and gloo under
+    ``use_gpu: False``. A failure is ``torch.distributed``'s own error.
+    """
+    cfg = config_dict or {}
+    if not cfg.get("multihost"):
+        return False
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    kwargs = {"init_method": "env://"}
+    address = cfg.get("coordinator_address")
+    if address is not None:
+        kwargs["init_method"] = address if "://" in address else f"tcp://{address}"
+        kwargs["world_size"] = cfg.get("num_processes")
+        kwargs["rank"] = cfg.get("process_id")
+    cpu = cfg.get("use_gpu") is False
+    if not cpu:
+        local = os.environ.get("LOCAL_RANK", kwargs.get("rank") or 0)
+        torch.cuda.set_device(int(local) % torch.cuda.device_count())
+    dist.init_process_group("gloo" if cpu else "nccl", **kwargs)
+    return True
 
 
 def _train_and_test(config, saved, verbose, callback_fn=None):
@@ -100,7 +131,7 @@ def _train_and_test(config, saved, verbose, callback_fn=None):
 
 def run_recbole(model=None, dataset=None, config_file_list=None, config_dict=None,
                 saved=True, callback_fn=None):
-    """Train and test a model from config.
+    """Train and test a model from config (after ``init_multihost``).
 
     ``callback_fn(epoch_idx, valid_score)`` is forwarded to ``Trainer.fit``
     (a hook after every validation).
@@ -111,7 +142,8 @@ def run_recbole(model=None, dataset=None, config_file_list=None, config_dict=Non
     config = Config(
         model=model, dataset=dataset, config_file_list=config_file_list, config_dict=config_dict
     )
-    _refuse_multihost(config)
+    # the resolved config, so that --multihost=True on the command line counts too
+    init_multihost(config.final_config_dict)
     init_seed(config["seed"], config["reproducibility"])
     init_logger(config)
     logger = getLogger()
@@ -124,9 +156,9 @@ def run_recbole(model=None, dataset=None, config_file_list=None, config_dict=Non
 
 
 def objective_function(config_dict=None, config_file_list=None, saved=True):
-    """One train+test trial for hyperparameter search."""
+    """One train+test trial for hyperparameter search (``multihost`` is not
+    read, as in the JAX package)."""
     config = Config(config_dict=config_dict, config_file_list=config_file_list)
-    _refuse_multihost(config)
     init_seed(config["seed"], config["reproducibility"])
     logging.basicConfig(level=logging.ERROR)
     return {"model": config["model"], **_train_and_test(config, saved, verbose=False)}

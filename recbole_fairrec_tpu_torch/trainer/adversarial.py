@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import itertools
 import os
-import pickle
 from time import time
 
 import numpy as np
@@ -211,8 +210,7 @@ class PFCNTrainer(Trainer):
             }
         for fname, sst_list in exports.items():
             stored = self.model.get_sst_embed(user_features, sst_list)
-            with open(os.path.join(self.checkpoint_dir, fname), "wb") as f:
-                pickle.dump(stored, f)
+            self._write_pickle(os.path.join(self.checkpoint_dir, fname), stored)
 
 
 class FairGoTrainer(Trainer):
@@ -279,8 +277,7 @@ class FairGoTrainer(Trainer):
     def save_pretrained_model(self, saved_model_file):
         payload = self._checkpoint_payload(-1)
         payload["optimizer"] = self._optimizer_payload(self.tx_pretrain)
-        with open(saved_model_file, "wb") as f:
-            pickle.dump(payload, f)
+        self._write_pickle(saved_model_file, payload)
         self._pretrain_saved = True
 
     def pretrain(self, train_data, valid_data, verbose=True, saved=True, show_progress=False):
@@ -407,8 +404,7 @@ class FairGoTrainer(Trainer):
         """Export the users' representations with the CURRENT parameters."""
         user_features = data.dataset.get_user_feature()[1:]
         stored = self.model.get_sst_embed(user_features, tuple(self.sst_attrs))
-        with open(saved_sst_embed_file or self.saved_sst_embed_file, "wb") as f:
-            pickle.dump(stored, f)
+        self._write_pickle(saved_sst_embed_file or self.saved_sst_embed_file, stored)
 
     def _save_sst_embed(self, data):
         self._save_sst_embed_direct(data)

@@ -70,16 +70,18 @@ class RMSprop(_AccumulatorOptimizer):
 
 
 @torch.no_grad()
-def clip_by_global_norm(parameters, max_norm):
+def clip_by_global_norm(parameters, max_norm, norms=None):
     """Scale the gradients of ``parameters`` in place so that their global L2
     norm is at most ``max_norm``; returns the norm before clipping. No host
-    read: the choice is a ``where`` on the device."""
+    read: the choice is a ``where`` on the device. ``norms``: each
+    gradient's norm where the caller knows better (a row-sharded table's is
+    that of all its shards)."""
     grads = [p.grad for p in parameters if p.grad is not None]
     if not grads:
         return None
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads])
-    )
+    if norms is None:
+        norms = [torch.linalg.vector_norm(g) for g in grads]
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     below = norm < max_norm
     for g in grads:
         g.copy_(torch.where(below, g, g / norm * max_norm))

@@ -62,6 +62,22 @@ paths go through pinned memory without waiting for the card. The streaming
 and host paths feed the collector inside the call.
 
 ``_last_eval_path`` names the path that ran.
+
+Sharded execution (``mesh_shape: [data, model]``, the JAX package's rules on
+``torch.distributed``; see ``parallel/``). ``__init__`` builds the mesh over
+the process group's ranks, keeps this rank's rows of ``user_embedding`` /
+``item_embedding`` where their rows divide the model axis (before any
+optimizer is built, so each rank's optimizers step their own shards) and
+replicates the rest. Every rank runs the same host pipeline with the same
+seed, so each builds the same global batch; a step draws the device
+negatives of the whole batch, keeps this rank's rows on the data axis where
+they divide it (else the whole batch), runs the loss with the split active
+(its batch reductions are global), averages the gradients over the data
+group (never over ``model``) and clips by the norm of the whole parameter
+set. Evaluation is replicated over ``data``; under a model axis with
+``distributed_eval`` (``_distributed_eval_ok``) the streaming path takes the
+item-sharded top-k (``_last_eval_path = "distributed"``). Checkpoints hold
+whole tables and are written by rank 0 under a name all ranks share.
 """
 
 from __future__ import annotations
@@ -74,10 +90,21 @@ from time import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataloader import FullSortEvalDataLoader
 from ..data.interaction import Interaction, cat_interactions
 from ..evaluator import Collector, Evaluator
+from ..parallel import (
+    batch_sharding,
+    batch_split,
+    distributed_topk_scores,
+    make_mesh,
+    pad_table_rows,
+    shard_params,
+    shard_table,
+)
+from ..parallel.collectives import all_gather_rows
 from ..utils import (
     EvaluatorType,
     _bucket,
@@ -139,11 +166,6 @@ class Trainer(AbstractTrainer):
     def __init__(self, config, model):
         super().__init__(config, model)
         self.logger = getLogger()
-        if config["mesh_shape"]:
-            raise NotImplementedError(
-                "mesh_shape (sharded execution) comes with the parallel layer of the "
-                "port (ROADMAP Queue A, parallel layer)"
-            )
         self.tensorboard = get_tensorboard(self.logger)
         self.wandblogger = WandbLogger(config)
         self.device = config["device"]
@@ -164,6 +186,9 @@ class Trainer(AbstractTrainer):
             f"-{os.getpid()}-{next(self._ckpt_counter)}.pth"
         )
         self.saved_model_file = os.path.join(self.checkpoint_dir, saved_model_file)
+        self.mesh = None
+        if config["mesh_shape"]:
+            self._setup_mesh(config["mesh_shape"])
 
         self.start_epoch = 0
         self.cur_step = 0
@@ -185,6 +210,58 @@ class Trainer(AbstractTrainer):
         self.tot_item_num = None
         self.test_batch_size = config["eval_batch_size"]
         self.item_tensor = None
+
+    # ----------------------------------------------------------------- mesh
+
+    def _setup_mesh(self, mesh_shape):
+        """Build the mesh, shard the tables and share rank 0's checkpoint
+        name (see the module doc)."""
+        self.mesh = make_mesh(tuple(mesh_shape), device_type=self.device.type)
+        shard_params(self.mesh, self.model)
+        names = [self.saved_model_file]
+        dist.broadcast_object_list(names, src=0)
+        self.saved_model_file = names[0]
+        # the JAX package's two lookups (embedding_exchange: allgather or not)
+        # compute one function; here both are the exchange
+        self.logger.info(f"sharded execution over mesh {self.mesh.shape}, lookups by the "
+                         f"exchange (embedding_exchange: {self.config['embedding_exchange']})")
+
+    def _write_pickle(self, path, payload):
+        """``pickle.dump`` of ``payload`` into ``path``: by rank 0 under a
+        mesh, the other ranks waiting until the file is there."""
+        if self.mesh is None or dist.get_rank() == 0:
+            with open(path, "wb") as f:
+                pickle.dump(payload, f)
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _average_over_data(self, params):
+        """Average the gradients of ``params`` over the data group, in one
+        all-reduce of their concatenation."""
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.group("data"))
+        flat /= self.mesh.shape["data"]
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+    def _param_shards(self):
+        """id of a row-sharded table's weight → its RowShard."""
+        return {id(self.model.get_parameter(f"{name}.weight")): shard
+                for name, shard in getattr(self.model, "row_shards", {}).items()}
+
+    @torch.no_grad()
+    def _sharded_grad_norms(self, params):
+        """Each gradient's norm, a row-sharded table's over all its shards
+        (the squares summed over the model axis)."""
+        sharded = self._param_shards()
+        norms = [torch.linalg.vector_norm(p.grad) for p in params]
+        if self.mesh.shape["model"] > 1 and any(id(p) in sharded for p in params):
+            sq = torch.stack([n * n for p, n in zip(params, norms) if id(p) in sharded])
+            dist.all_reduce(sq, group=self.mesh.group("model"))
+            it = iter(torch.sqrt(sq))
+            norms = [next(it) if id(p) in sharded else n for p, n in zip(params, norms)]
+        return norms
 
     # ------------------------------------------------------------ optimizer
 
@@ -319,10 +396,17 @@ class Trainer(AbstractTrainer):
         JAX package's masked optax chain does."""
         self.model.zero_grad(set_to_none=True)
         batch = self._inject_negatives(batch, loss_name)
-        loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
+        split = None
+        if self.mesh is not None:
+            batch, split = batch_sharding(self.mesh, batch)
         params = [p for group in optimizer.param_groups for p in group["params"]]
-        for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
+        with batch_split(split):
+            loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
             p.grad = g
+        if split is not None:
+            self._average_over_data([p for p in params if p.grad is not None])
         missing = [p for p in params if p.grad is None]
         if missing:  # views of one zero buffer: one allocation, not one per parameter
             flat = torch.zeros(sum(p.numel() for p in missing), dtype=missing[0].dtype,
@@ -330,7 +414,8 @@ class Trainer(AbstractTrainer):
             for p, g in zip(missing, flat.split([p.numel() for p in missing])):
                 p.grad = g.view_as(p)
         if self.clip_grad_norm:
-            clip_by_global_norm(params, self.clip_grad_norm.get("max_norm", 1.0))
+            norms = None if self.mesh is None else self._sharded_grad_norms(params)
+            clip_by_global_norm(params, self.clip_grad_norm.get("max_norm", 1.0), norms)
         optimizer.step()
         return loss.detach()
 
@@ -664,27 +749,44 @@ class Trainer(AbstractTrainer):
             "optimizer": self._optimizer_payload(self.optimizer),
         }
 
-    @staticmethod
-    def _optimizer_payload(optimizer):
+    def _sharded_slots(self, optimizer):
+        """Optimizer state index → RowShard, for the row-sharded tables."""
+        shards = self._param_shards()
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        return {i: shards[id(p)] for i, p in enumerate(params) if id(p) in shards}
+
+    def _optimizer_payload(self, optimizer):
         """An optimizer's ``state_dict`` with numpy leaves (the checkpoint
-        holds no torch object, so the JAX package can read it)."""
-        return _tree_map_tensors(
-            lambda t: t.detach().cpu().numpy(), optimizer.state_dict(), torch.Tensor
-        )
+        holds no torch object, so the JAX package can read it); under a mesh
+        the state of a row-sharded table is gathered whole."""
+        state = optimizer.state_dict()  # its per-parameter dicts are the live state
+        state["state"] = {i: dict(slots) for i, slots in state["state"].items()}
+        for i, shard in self._sharded_slots(optimizer).items():
+            slots = state["state"].get(i, {})
+            for key, value in slots.items():
+                if torch.is_tensor(value) and value.dim() > 0:
+                    slots[key] = all_gather_rows(value, self.mesh.group(shard.axis))
+        return _tree_map_tensors(lambda t: t.detach().cpu().numpy(), state, torch.Tensor)
 
     def _load_optimizer_payload(self, optimizer, payload):
         """Restore ``optimizer`` from a checkpoint's ``optimizer`` entry: the
         port's own payload, or the JAX package's optax state of the same learner
-        (``utils/jax_params.py::load_jax_opt_state``)."""
+        (``utils/jax_params.py::load_jax_opt_state``). Under a mesh a
+        row-sharded table keeps its rows of the whole state."""
         if isinstance(payload, dict) and "param_groups" in payload:
-            optimizer.load_state_dict(_tree_map_tensors(torch.as_tensor, payload, np.ndarray))
+            payload = _tree_map_tensors(torch.as_tensor, payload, np.ndarray)
+            for i, shard in self._sharded_slots(optimizer).items():
+                slots = payload["state"].get(i, {})
+                for key, value in slots.items():
+                    if value.dim() > 0 and value.shape[0] == shard.rows:
+                        slots[key] = value[shard.lo:shard.hi]
+            optimizer.load_state_dict(payload)
         else:
             load_jax_opt_state(optimizer, self.model, payload)
 
     def _save_checkpoint(self, epoch, verbose=True, **kwargs):
         saved_model_file = kwargs.pop("saved_model_file", self.saved_model_file)
-        with open(saved_model_file, "wb") as f:
-            pickle.dump(self._checkpoint_payload(epoch), f)
+        self._write_pickle(saved_model_file, self._checkpoint_payload(epoch))
         if verbose:
             self.logger.info(set_color("Saving current", "blue") + f": {saved_model_file}")
 
@@ -1051,7 +1153,15 @@ class Trainer(AbstractTrainer):
 
         max_k = max(self.config["topk"])
         k_prime = getattr(self, "_stream_kprime", None) or (max_k + 1)
-        if self.config["use_pallas"] is False:
+        if self._distributed_eval_ok():
+            # this rank's rows of the padded table; candidates merged over the model axis
+            table, n_valid = pad_table_rows(item_table, self.mesh.shape["model"])
+            _, cand_i = distributed_topk_scores(
+                self.mesh, user_repr.contiguous(), shard_table(self.mesh, table).contiguous(),
+                k_prime, valid_rows=n_valid,
+            )
+            self._last_eval_path = "distributed"
+        elif self.config["use_pallas"] is False:
             _, cand_i = streaming_topk_scores(user_repr, item_table, k_prime)
             self._last_eval_path = "streaming"
         else:
@@ -1063,6 +1173,7 @@ class Trainer(AbstractTrainer):
             )
         cand_i = cand_i[:B].cpu().numpy()
 
+        # indices at or past the catalogue are the distributed merge's sentinels
         forbidden = (cand_i == 0) | (cand_i >= self.tot_item_num)
         if history_index is not None:
             hist_u, hist_i = history_index
@@ -1117,6 +1228,20 @@ class Trainer(AbstractTrainer):
     def _streaming_eval_ok(self):
         return self.config["streaming_eval"] and self._retrieval_eval_capable()
 
+    def _distributed_eval_ok(self):
+        """The JAX package's rule: under a model axis, the item-sharded top-k
+        when ``distributed_eval`` is True, or by default (None) only where
+        ``streaming_eval`` is opted into (retrieval-form ranking breaks
+        head-score ties differently from the dense path)."""
+        cfg = self.config["distributed_eval"]
+        opted_in = cfg is True or (cfg is None and self.config["streaming_eval"])
+        return (
+            self.mesh is not None
+            and self.mesh.shape.get("model", 1) > 1
+            and opted_in
+            and self._retrieval_eval_capable()
+        )
+
     @staticmethod
     def _drain_collect(pending):
         """Call the deferred emits of ``_collect_batch`` in batch order (a
@@ -1132,7 +1257,7 @@ class Trainer(AbstractTrainer):
         that feeds the collector (see ``_drain_collect``); the others feed
         it here and return None."""
         if kind == "full":
-            if self._streaming_eval_ok():
+            if self._distributed_eval_ok() or self._streaming_eval_ok():
                 return self._collect_full_sort_streaming(batched_data, sst_list)
             if self._fused_eval_ok():
                 self._last_eval_path = "fused"

@@ -14,6 +14,7 @@ from .common import (
     ensure_dir,
     get_local_time,
     init_seed,
+    pickle_to,
     set_color,
 )
 from .logger import init_logger
@@ -33,6 +34,7 @@ __all__ = [
     "ensure_dir",
     "get_local_time",
     "init_seed",
+    "pickle_to",
     "set_color",
     "init_logger",
     "get_model",

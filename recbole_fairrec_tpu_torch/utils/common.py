@@ -43,6 +43,23 @@ def ensure_dir(dir_path: str) -> None:
     os.makedirs(dir_path, exist_ok=True)
 
 
+def pickle_to(path, obj):
+    """``pickle.dump`` into a temporary file beside ``path``, then renamed to
+    it: a reader (another process of a multi-process run sharing the
+    directory) sees no file or the whole one."""
+    import pickle
+    import tempfile
+
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(obj, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def early_stopping(value, best, cur_step, max_step, bigger=True):
     """Early-stopping counter update.
 

@@ -20,6 +20,11 @@ its checkpoints, and ``load_jax_params`` skips them.
 layout, so the JAX package's trainer loads them), and ``load_jax_opt_state``
 turns the JAX package's Adam, Adagrad or RMSprop state, whole or masked to
 one optimizer's parameters, into the port optimizer's.
+
+A model under a mesh (``parallel.shard_params``) holds only its rank's rows
+of a row-sharded table: ``load_jax_params`` keeps those rows of the JAX
+table, and ``to_jax_params`` gathers the whole table over the model axis
+(every rank of the group calls it) — trees always hold whole tables.
 """
 
 from __future__ import annotations
@@ -75,6 +80,13 @@ def _tables(model):
             if isinstance(module, torch.nn.Embedding)}
 
 
+def row_shard_of(model, name):
+    """The :class:`~..parallel.mesh.RowShard` of parameter ``name`` when it
+    is a row-sharded table's weight, else None."""
+    module, _, leaf = name.rpartition(".")
+    return getattr(model, "row_shards", {}).get(module) if leaf == "weight" else None
+
+
 def load_jax_params(model, params, state=None):
     """Copy a JAX param tree and its ``state`` tree (numpy arrays, nested
     dicts and lists) into ``model``'s parameters and buffers. Every key and
@@ -100,6 +112,9 @@ def load_jax_params(model, params, state=None):
     for name, value in flat.items():
         arr = np.asarray(value)
         ref = own[name]
+        shard = row_shard_of(model, name)
+        if shard is not None and arr.shape[:1] == (shard.rows,):
+            arr = arr[shard.lo:shard.hi]
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(
                 f"load_jax_params: {name} has shape {tuple(arr.shape)}, "
@@ -110,10 +125,20 @@ def load_jax_params(model, params, state=None):
     return model
 
 
+def _whole(model, name, value):
+    shard = row_shard_of(model, name)
+    if shard is None:
+        return value.detach()
+    from ..parallel.collectives import all_gather_rows
+
+    return all_gather_rows(value.detach(), model.mesh.group(shard.axis))
+
+
 def _tree(model, named):
     tables = _tables(model)
     return _unflatten({
-        _jax_name(name, tables): value.detach().cpu().numpy().copy() for name, value in named
+        _jax_name(name, tables): _whole(model, name, value).cpu().numpy().copy()
+        for name, value in named
     })
 
 
@@ -216,10 +241,14 @@ def load_jax_opt_state(optimizer, model, opt_state_tree):
             name = names[id(p)]
             key = _jax_name(name, tables)
             entry = {}
+            shard = row_shard_of(model, name)
             for slot, flat in trees.items():
-                if key not in flat or tuple(np.shape(flat[key])) != tuple(p.shape):
+                value = np.asarray(flat[key]) if key in flat else None
+                if shard is not None and value is not None and value.shape[:1] == (shard.rows,):
+                    value = value[shard.lo:shard.hi]
+                if value is None or tuple(value.shape) != tuple(p.shape):
                     raise KeyError(f"load_jax_opt_state: no {learner} state for parameter {name}")
-                entry[slot] = torch.as_tensor(np.array(flat[key]), dtype=p.dtype)
+                entry[slot] = torch.as_tensor(np.array(value), dtype=p.dtype)
             if count is not None:
                 entry["step"] = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
             state[index] = entry

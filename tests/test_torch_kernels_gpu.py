@@ -681,3 +681,80 @@ def test_certified_topk_goes_through_the_kernel(card):
     assert fused_topk.launches == before + 1
     assert certified.device.type == "cuda" and bool(certified.all())
     assert idx.dtype == torch.int32 and not bool((idx == 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,I,d,k,col0", [
+    (6144, 908, 64, 173, 908),  # one of the parallel phase's four serving shards
+    (77, 301, 30, 50, 3000),    # scalar copies, an offset past the shard's own rows
+    (5, 9, 8, 12, 100),         # k' beyond the shard: (-inf, 0) slots
+])
+def test_fused_topk_shard_mode_matches_plain(card, B, I, d, k, col0):
+    """The shard mode (indices offset by ``col_offset``, the PAD mask off)
+    equals its plain version slot for slot on integer inputs."""
+    gen = torch.Generator().manual_seed(1)
+    U = torch.randint(-2, 3, (B, d), generator=gen).float().to(card)
+    T = torch.randint(-2, 3, (I, d), generator=gen).float().to(card)
+    T[0] = 2.0  # row 0 scores high: selectable, as the shard mode allows
+    before = fused_topk.launches
+    s, i = fused_topk.fused_topk_scores(U, T, k, col_offset=col0, mask_pad=False)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    s_ref, i_ref = fused_topk.fused_topk_scores_reference(U, T, k, col_offset=col0,
+                                                          mask_pad=False)
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+    assert bool((i == col0).any())
+
+
+@pytest.mark.gpu
+def test_parallel_layer_on_a_world_of_one(card, tmp_path):
+    """``init_multihost`` gives a world of one NCCL rank on cuda:0; over its
+    mesh the item-sharded top-k (four shards through the kernel's shard
+    mode, merged, and the collective form), ``sharded_propagate`` and the
+    exchange lookup equal their single-device forms."""
+    import torch.distributed as dist
+
+    from recbole_fairrec_tpu_torch.ops.spmm import propagate
+    from recbole_fairrec_tpu_torch.ops.topk import streaming_topk_scores
+    from recbole_fairrec_tpu_torch.parallel import (
+        bucket_allgather_lookup,
+        distributed_topk_scores,
+        local_candidates,
+        make_mesh,
+        merge_candidates,
+        pad_table_rows,
+        shard_propagation_matrix,
+        shard_table,
+        sharded_propagate,
+    )
+    from recbole_fairrec_tpu_torch.quick_start import init_multihost
+
+    assert init_multihost({"multihost": True, "num_processes": 1, "process_id": 0,
+                           "coordinator_address": f"file://{tmp_path / 'store'}"})
+    try:
+        assert dist.get_backend() == "nccl" and torch.cuda.current_device() == 0
+        mesh = make_mesh((1, 1))
+        gen = torch.Generator().manual_seed(2)
+        U = torch.randint(-2, 3, (300, 16), generator=gen).float().to(card)
+        T = torch.randint(-2, 3, (1001, 16), generator=gen).float().to(card)
+        k = 40
+        s_p, i_p = streaming_topk_scores(U, T, k, mask_pad=False)
+        table, n_valid = pad_table_rows(T, 4)
+        rows = table.shape[0] // 4
+        before = fused_topk.launches
+        parts = [local_candidates(U, table[j * rows:(j + 1) * rows], k, j * rows, n_valid)
+                 for j in range(4)]
+        s, i = merge_candidates([p[0] for p in parts], [p[1] for p in parts], k, table.shape[0])
+        assert fused_topk.launches == before + 4
+        assert torch.equal(i, i_p) and torch.equal(s, s_p)
+        s, i = distributed_topk_scores(mesh, U, shard_table(mesh, table), k, valid_rows=n_valid)
+        assert torch.equal(i, i_p) and torch.equal(s, s_p)
+
+        a = torch.rand((257, 257), generator=gen).to(card)
+        x = torch.randn((257, 16), generator=gen).to(card)
+        hop = sharded_propagate(mesh, shard_propagation_matrix(mesh, a), x)
+        assert torch.equal(hop, propagate(x, None, None, None, 257, dense=a))
+        ids = torch.randint(0, 1001, (333,), generator=gen).to(card)
+        assert torch.equal(bucket_allgather_lookup(mesh, T, ids), T[ids])
+    finally:
+        dist.destroy_process_group()

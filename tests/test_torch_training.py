@@ -565,12 +565,18 @@ def test_uncovered_settings_raise(tiny_env, tiny_data_path, tmp_path):
         tiny_env.config["device_epoch_shuffle"] = False
         tiny_env.config["device_neg_sampling"] = False
         loader.update_config(tiny_env.config)
+    # mesh_shape is ported: a trainer over a mesh of a gloo world of one
+    # (tests/test_torch_parallel.py runs worlds of 2 and 4 processes)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
     try:
         tiny_env.config["mesh_shape"] = [1, 1]
-        with pytest.raises(NotImplementedError, match="mesh_shape"):
-            tiny_env.port_trainer(params)
+        meshed = tiny_env.port_trainer(params)
+        assert meshed.mesh.shape == {"data": 1, "model": 1}
+        assert set(meshed.model.row_shards) == {"user_embedding", "item_embedding"}
     finally:
         tiny_env.config["mesh_shape"] = None
+        torch.distributed.destroy_process_group()
     try:
         tiny_env.config["save_sst_embed"] = True
         base = tiny_env.port_trainer(params, base=True)
@@ -579,10 +585,18 @@ def test_uncovered_settings_raise(tiny_env, tiny_data_path, tmp_path):
         assert base.train_loss_dict == {}  # refused before training, not after
     finally:
         tiny_env.config["save_sst_embed"] = False
+    # multihost is ported: without a group and a coordinator it reads
+    # torchrun's environment, and without that torch.distributed refuses
     cfg = _cfg(tiny_data_path, str(tmp_path / "saved"), "tiny")
-    with pytest.raises(NotImplementedError, match="multihost"):
-        port_pkg.run_recbole("PFCN_PMF", "tiny",
-                             config_dict={**cfg, "use_gpu": False, "multihost": True})
+    env = {k: os.environ.pop(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+           if k in os.environ}
+    try:
+        with pytest.raises(ValueError, match="env://"):
+            port_pkg.run_recbole("PFCN_PMF", "tiny",
+                                 config_dict={**cfg, "use_gpu": False, "multihost": True})
+    finally:
+        os.environ.update(env)
+    assert not torch.distributed.is_initialized()
 
 
 def test_profile_dir_writes_a_trace(tiny_env, tmp_path):
