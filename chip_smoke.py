@@ -12,7 +12,8 @@ same data through ``run_recbole``, trains the adversarial PFCN family
 their published protocol and FairGo (graph propagation, pretrain then
 adversarial finetune) through ``run_recbole``, trains with resident epochs
 and runs a hyper-parameter search, runs the parallel layer on a world of
-one NCCL rank, checks that every path that
+one NCCL rank, serves a bfloat16 catalog of 2M items and takes the train
+step at that scale, checks that every path that
 has a kernel went through it, and holds every kernel
 against its plain PyTorch version at the shapes the paths give it. Imports
 nothing of JAX.
@@ -20,12 +21,25 @@ nothing of JAX.
 Phases, each of which exits non-zero when it fails:
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
   2. build: every kernel of the path, built in parallel (one nvcc each);
-  3. serve: synthetic ml-1M-scale data (numpy, seed 2020) -> Config ->
+  3. scale: bench.py's catalog (bench_scale): a 2,097,152 x 128 bfloat16
+     item table made on the card from a seed, served through
+     certified_topk_scores (B 128) and approx_topk_scores (B 1024) with the
+     launch counts set to 0 before and read after; the kernel against its
+     plain version at B 128 and B 1024 over that table and at
+     bench_pallas_topk's float32 shape (B 1024, I 65,536, d 64), with times,
+     the split into its two CUDA kernels, the bound and the library call, a
+     call allocating no float32 copy of its table; then the port's
+     Trainer._train_step at 1,048,576 users x 2,097,152 items x 128, batch
+     65,536, dense Adam: 10 timed steps, every batch's loss falling, with
+     examples/s, ms a step and peak memory (the first of the paths: late in
+     a process that has run the other phases the profiler has shown no
+     kernel of a fused_topk call, so the split would be lost);
+  4. serve: synthetic ml-1M-scale data (numpy, seed 2020) -> Config ->
      create_dataset -> data_preparation -> a checkpoint of seeded random
      weights -> load_data_and_model -> evaluate(valid), evaluate(test) on the
      streaming path, with every launch count set to 0 just before and read
      just after; then the plain-torch dense path must give the same metrics;
-  4. train: run_recbole on the same data (batch 2048, one uniform negative
+  5. train: run_recbole on the same data (batch 2048, one uniform negative
      drawn on the card, Adam, streaming evaluation, 3 epochs, a validation
      after each), launch counts again set to 0 before and read after; the
      losses fall, the validations and the test went through the kernel, the
@@ -33,7 +47,7 @@ Phases, each of which exits non-zero when it fails:
      the card are unused pairs and uniform; one step on the card equals one
      on the CPU; seconds per epoch and per validation and the split of one
      step are printed;
-  5. adversarial: the same interactions with ml-1M's age and occupation
+  6. adversarial: the same interactions with ml-1M's age and occupation
      codes added per user (a separate numpy seed); run_recbole of PFCN_PMF
      at its published widths with filter_mode sm over gender, age and
      occupation (7 filters, 3 discriminators), 3 epochs (epoch 0 filter +
@@ -47,10 +61,10 @@ Phases, each of which exits non-zero when it fails:
      and PFCN_MLP (sm, the dense path); seconds per epoch kind, per
      validation and per test, and the split of a filter and a discriminator
      step are printed;
-  6. published: PFCN_PMF, FOCF and NFCF with their published YAMLs (uni100,
+  7. published: PFCN_PMF, FOCF and NFCF with their published YAMLs (uni100,
      the 12 metrics): the sampled device path against the host path and the
      card against the CPU, labeled and GAUC evaluations;
-  7. fairgo: FairGo_PMF and FairGo_GCN with their published YAMLs, cut to
+  8. fairgo: FairGo_PMF and FairGo_GCN with their published YAMLs, cut to
      one pretrain and one finetune epoch, through run_recbole on the card
      (dense float32 propagation over the ml-1M-scale graph, 9,671 nodes):
      the passes, both stages' evaluations and the checkpoints (no
@@ -59,7 +73,7 @@ Phases, each of which exits non-zero when it fails:
      propagation equals COO and bfloat16 stays within its bound; seconds
      per epoch, validation and test, the split of each step kind, and one
      hop against its bound are printed;
-  8. resident: run_recbole of the training phase's BPR-MF with resident
+  9. resident: run_recbole of the training phase's BPR-MF with resident
      epochs (device_epoch_shuffle: the train table on the card, the
      shuffle and the negatives drawn there), 3 epochs, streaming validation
      and test through the kernel, launch counts set to 0 before and read
@@ -73,7 +87,7 @@ Phases, each of which exits non-zero when it fails:
      paths' emits deferred and immediate; the serve, published and fairgo
      phases check with the profiler that no collect call of the dense or
      sampled device path synchronises.)
-  9. parallel: init_multihost starts a world of one (NCCL on cuda:0);
+ 10. parallel: init_multihost starts a world of one (NCCL on cuda:0);
      run_recbole of the training phase's BPR-MF for 2 epochs without a mesh
      and over mesh_shape [1, 1] (the NCCL group, the sharded tables, the
      exchange lookups and the trainer's sharded paths, collectives of one
@@ -84,7 +98,7 @@ Phases, each of which exits non-zero when it fails:
      the shard call timed beside topk(matmul) on the same shard;
      sharded_propagate at FairGo's n (9,671) and the exchange lookup equal
      their single-device forms; the group is destroyed;
- 10. kernels: each kernel against its plain version on the inputs the
+ 11. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
@@ -236,7 +250,7 @@ def seeded_weights(model, generator, std=0.3, quantum=1.0 / 64):
 
 
 def serve(data_root, work_dir, extra_cfg=None):
-    """Phase 3: the serving main path. Returns the launch counts of its run,
+    """Phase 4: the serving main path. Returns the launch counts of its run,
     the serving trainer and its test loader."""
     from recbole_fairrec_tpu_torch import Config, load_data_and_model
     from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
@@ -510,7 +524,7 @@ def _bpr_run(data_root, work_dir, card, label, extra_cfg=None):
 
 
 def train(data_root, work_dir, card, extra_cfg=None):
-    """Phase 4: the training main path through ``run_recbole``, then the
+    """Phase 5: the training main path through ``run_recbole``, then the
     checkpoint read back, the negatives, one step against the CPU and the
     step split. Returns the launch counts of its run."""
     from recbole_fairrec_tpu_torch import load_data_and_model
@@ -645,7 +659,7 @@ def _n_macro(trainer, loader):
 
 
 def adversarial(data_root, work_dir, card):
-    """Phase 5: the adversarial main path (PFCN_PMF, sm over three
+    """Phase 6: the adversarial main path (PFCN_PMF, sm over three
     attributes, 3 epochs) and the short runs of the other backbones. Returns
     the launch counts by run and the kernel's rows on the new inputs."""
     cfg = adversarial_config(data_root, work_dir)
@@ -1069,7 +1083,7 @@ def time_deferral(trainer, valid_data, card):
 
 
 def published(data_root, work_dir, card):
-    """Phase 6: the fair models with their published YAMLs unchanged (uni100
+    """Phase 7: the fair models with their published YAMLs unchanged (uni100
     validation and test, top 5, NDCG@5, the 12 metrics, the rating
     threshold): PFCN_PMF sm over gender and age for 2 epochs, FOCF
     (``fair_objective: value``) for 1, NFCF pretrained for 1 and finetuned
@@ -1508,7 +1522,10 @@ def _device_profile(fn, calls=20):
     """The device time per call of every kernel, copy and fill ``fn``
     launches (``torch.profiler``), by name, in ms. The profiler lists each
     kernel twice, as a device event and again in the self device time of
-    the operator that launched it; only the device events count here."""
+    the operator that launched it; only the device events count here. A
+    user annotation's span on the card (``Optimizer.step#Adam.step``) is a
+    device event too, and overlaps the kernels inside it: it does not
+    count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1519,7 +1536,8 @@ def _device_profile(fn, calls=20):
             fn()
         _sync()
     return {ev.key: ev.self_device_time_total / calls / 1e3 for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA}
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)}
 
 
 def _device_busy_ms(fn, calls=20):
@@ -2016,7 +2034,7 @@ def time_fairgo_hop(model, card):
 
 
 def fairgo(data_root, work_dir, card):
-    """Phase 7: FairGo_PMF and FairGo_GCN with their published YAMLs, one
+    """Phase 8: FairGo_PMF and FairGo_GCN with their published YAMLs, one
     pretrain and one finetune epoch each, through ``run_recbole`` on the
     card (dense float32 propagation): the checks of ``_fairgo_run``, the
     checkpoints' contents, the checkpoints read back, one step of each kind
@@ -2202,7 +2220,7 @@ def check_certified_topk(U, T, k, card):
 
 
 def resident(data_root, work_dir, card, serving, extra_cfg=None):
-    """Phase 8: resident epochs (``device_epoch_shuffle``) on the main path.
+    """Phase 9: resident epochs (``device_epoch_shuffle``) on the main path.
     ``run_recbole`` of BPR-MF at bench.py's settings with resident epochs, 3
     epochs, streaming validation and test through the kernel (launch counts
     set to 0 before and read after); the losses fall; an injected resident
@@ -2289,22 +2307,19 @@ def _shard_row(mod, U, shard, k, col0, card, reps=20):
     s_p, i_p = plain()
     err, n_near = _compare_topk("shard", U, shard, k, s_k, i_k, s_p, i_p, pad_masked=False,
                                 col_offset=col0)
-    B, d = U.shape
-    I = shard.shape[0]
-    ops_ms = 2.0 * B * I * d / PEAK_F32_FLOPS * 1e3
-    bytes_ms = (4.0 * (B * d + I * d) + 8.0 * B * k) / PEAK_BYTES * 1e3
+    bound, bound_by = _bound_ms(U, shard, k)
     return {
-        "label": "shard", "B": B, "I": I, "d": d, "k": k, "col_offset": col0,
+        "label": "shard", "B": U.shape[0], "I": shard.shape[0], "d": U.shape[1], "k": k,
+        "col_offset": col0,
         "max_abs_err": err, "near_tie_swaps": n_near, "ms": _median_ms(kernel, reps),
         "ms_back_to_back": _median_ms(kernel, reps, calls=10),
         "plain_ms": _median_ms(plain, max(reps // 4, 3)), "library_ms": _median_ms(library, reps),
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "card": card,
+        "bound_ms": bound, "bound_by": bound_by, "card": card,
     }
 
 
 def parallel(data_root, work_dir, card, serving):
-    """Phase 9: the parallel layer on the one card, a world of one NCCL rank
+    """Phase 10: the parallel layer on the one card, a world of one NCCL rank
     started by ``init_multihost``: BPR-MF through ``run_recbole`` without a
     mesh and over ``mesh_shape: [1, 1]`` (collectives over one rank are
     identities, so the losses and dicts must be equal); the item-sharded
@@ -2404,6 +2419,241 @@ def parallel(data_root, work_dir, card, serving):
     return launches, row
 
 
+# bench.py::bench_scale (bench.py:589-760): the catalog where the device, not
+# the host, binds. 2,097,152 item rows as bench.py serves them (row 0 is the
+# PAD item, masked; no extra row), d 128, a bfloat16 table; blocks of B 128
+# and 1024 users, k' 10. The scale train step: 1,048,576 users, the same
+# items, batch 65,536, dense Adam. bench_pallas_topk's shape (bench.py:
+# 550-588): B 1024, I 65,536, d 64, float32, k' 10.
+SCALE_ITEMS = 2 * 1024 * 1024
+SCALE_USERS = 1024 * 1024
+SCALE_DIM = 128
+SCALE_K = 10
+SCALE_BLOCKS = (128, 1024)
+SCALE_BATCH = 65536
+SCALE_STEPS = 10
+PALLAS_BENCH = (1024, 65536, 64)  # B, I, d of bench_pallas_topk
+PEAK_BF16_FLOPS = 989e12  # bf16 dense tensor cores (H100 SXM data sheet)
+
+
+class ScaleDataset:
+    """Duck-typed dataset of the scale step: the models read only ``num``
+    at construction (bench.py's ``_ScaleDS``)."""
+
+    def __init__(self, n_users, n_items):
+        self.sizes = {"user_id": n_users, "item_id": n_items}
+
+    def num(self, field):
+        return self.sizes[field]
+
+
+def scale_config_dict(work_dir, dim=SCALE_DIM, extra=None):
+    """bench_scale's configuration: PFCN_PMF as pure BPR-MF (``filter_mode:
+    none``, no attribute lookups), the YAML's Adam defaults."""
+    return {
+        "data_path": os.path.join(work_dir, "data"), "filter_mode": "none",
+        "sst_attr_list": [], "embedding_size": dim, "metrics": ["NDCG"], "topk": [TOPK],
+        "valid_metric": f"NDCG@{TOPK}", "show_progress": False, "state": "WARNING",
+        "checkpoint_dir": os.path.join(work_dir, "saved"), **(extra or {}),
+    }
+
+
+def scale_trainer(work_dir, n_users=SCALE_USERS, n_items=SCALE_ITEMS, dim=SCALE_DIM,
+                  extra=None, generator=None):
+    """The port's base ``Trainer`` over PFCN_PMF on a ``ScaleDataset``."""
+    from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.trainer import Trainer
+    from recbole_fairrec_tpu_torch.utils import get_model
+
+    config = Config(model="PFCN_PMF", dataset="scale",
+                    config_dict=scale_config_dict(work_dir, dim, extra))
+    model = get_model("PFCN_PMF")(config, ScaleDataset(n_users, n_items), generator=generator)
+    return Trainer(config, model)
+
+
+def scale_batches(n_users, n_items, batch_size, n=4, seed=3):
+    """bench_scale's batches: (user, pos, neg) from RandomState(seed), in its
+    draw order (bench.py:691-699), as int32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    return [{"user_id": rng.randint(1, n_users, batch_size, dtype=np.int32),
+             "item_id": rng.randint(1, n_items, batch_size, dtype=np.int32),
+             "neg_item_id": rng.randint(1, n_items, batch_size, dtype=np.int32)}
+            for _ in range(n)]
+
+
+def _bound_ms(U, T, k):
+    """The least time of one top-k' call: each input read once and each
+    output written once at the memory rate, or 2 B I d operations at the
+    peak of the inputs' type (bf16 tensor cores when both are bf16, else
+    float32 outside the tensor cores), whichever is larger."""
+    import torch
+
+    B, d = U.shape
+    I = T.shape[0]
+    bf16 = U.dtype == T.dtype == torch.bfloat16
+    ops_ms = 2.0 * B * I * d / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
+    bytes_ms = (U.element_size() * B * d + T.element_size() * I * d + 8.0 * B * k) \
+        / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def kernel_times_us(fn, calls=10):
+    """Mean device time per call, in µs, of each of the two CUDA kernels of
+    a ``fused_topk`` call that ``fn`` makes: score + select apart from the
+    merge (0 where the profiler saw none)."""
+    times = _device_profile(fn, calls)
+    return {name: sum(ms for key, ms in times.items() if name in key) * 1e3
+            for name in ("score_select_kernel", "merge_kernel")}
+
+
+def _no_table_copy(mod, U, T, k, label):
+    """One kernel call on ``T`` allocates its outputs and its scratch and
+    nothing else: the rise of the peak allocation, less the scratch, stays
+    below the size of a float32 copy of ``T``. Returns (rise, scratch)
+    bytes."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = mod.fused_topk_scores(U, T, k)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    del out
+    words = mod._LAUNCH_ARGS[(U.device.index, U.shape[0], T.shape[0], U.shape[1], k,
+                              T.element_size())][0]
+    if rise - 8 * words >= 4 * T.numel():
+        fail(f"scale[{label}]: a call raised the allocation by {rise} bytes, {8 * words} of "
+             f"scratch: room for a float32 copy of the table ({4 * T.numel()} bytes)")
+    return rise, 8 * words
+
+
+def scale_kernel_row(mod, U, T, k, label, card, reps=5):
+    """``check_fused_topk`` at catalog scale, after a call that allocates no
+    float32 copy of the table (``_no_table_copy``), with the split of a
+    call into its two CUDA kernels."""
+    import torch
+
+    rise, scratch = _no_table_copy(mod, U, T, k, label)
+    split = kernel_times_us(lambda: mod.fused_topk_scores(U, T, k), calls=5)
+    row = check_fused_topk(mod, U, T, k, label, card, reps, extra={
+        "kernels_us": split, "alloc_rise_bytes": rise, "scratch_bytes": scratch})
+    torch.cuda.empty_cache()  # the library call's [B, I] float32 scores
+    return row
+
+
+def time_scale_step(work_dir, card, steps=SCALE_STEPS):
+    """bench_scale's train step on the card: the port's ``Trainer._train_step``
+    (dense Adam over both tables) at 1,048,576 users x 2,097,152 items x 128,
+    batch 65,536; one step to warm up, then ``steps`` timed steps over 4
+    batches in turn. Each batch's loss must fall from one visit to the next.
+    Prints examples/s, ms a step, peak memory and the bound."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = scale_trainer(work_dir)
+    if trainer.device.type != "cuda" or any(p.device.type != "cuda"
+                                            for p in trainer.model.parameters()):
+        fail(f"scale: the trainer is on {trainer.device}, not on the card")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = [{key: torch.from_numpy(v).long().cuda() for key, v in b.items()}
+               for b in scale_batches(SCALE_USERS, SCALE_ITEMS, SCALE_BATCH)]
+    trainer.model.train()
+    losses = [trainer._train_step(dict(batches[0]), "calculate_loss", None, trainer.optimizer)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        losses.append(trainer._train_step(dict(batches[step % 4]), "calculate_loss", None,
+                                          trainer.optimizer))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(x) for x in losses]
+    # visits of batch b: the warm-up (b = 0), then steps b, b + 4, ...
+    visits = {b: ([losses[0]] if b == 0 else []) + losses[1 + b::4] for b in range(4)}
+    for b, seq in visits.items():
+        if not all(math.isfinite(x) for x in seq) or any(y >= x for x, y in zip(seq, seq[1:])):
+            fail(f"scale: the loss of batch {b} did not fall from visit to visit: {seq}")
+    # where the card's time goes: every kernel of 4 more steps, by name
+    turn = iter(range(1 << 30))
+    split = _device_profile(lambda: trainer._train_step(
+        dict(batches[next(turn) % 4]), "calculate_loss", None, trainer.optimizer), calls=4)
+    busy = sum(split.values())
+    top = dict(sorted(((name[:90], ms) for name, ms in split.items()), key=lambda kv: -kv[1])[:8])
+    params = (SCALE_USERS + SCALE_ITEMS) * SCALE_DIM
+    gathers = SCALE_BATCH * 3 * SCALE_DIM * 4 * 2
+    jax_bytes = 6 * 4 * params + gathers  # bench.py:711-712: p, m, v read and written
+    port_bytes = jax_bytes + 2 * 4 * params  # + the dense gradient written, then read
+    row = {"users": SCALE_USERS, "items": SCALE_ITEMS, "d": SCALE_DIM, "batch": SCALE_BATCH,
+           "steps": steps, "init_s": init_s, "step_ms": step_s * 1e3,
+           "examples_per_s": SCALE_BATCH / step_s, "peak_memory_bytes": peak,
+           "param_bytes": 4 * params, "bound_ms": port_bytes / PEAK_BYTES * 1e3,
+           "bound_ms_without_dense_grad": jax_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "device_busy_ms": busy, "device_idle_share": 1.0 - busy / (step_s * 1e3),
+           "top_kernels_ms": top, "losses": losses, "card": card}
+    print(f"scale: train step {json.dumps(row)}", flush=True)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def scale(work_dir, card):
+    """Phase 3: catalog scale. A 2,097,152 x 128 bfloat16 item table made on
+    the card from a seed; the launch counts are set to 0, then
+    ``certified_topk_scores`` (B 128) and ``approx_topk_scores(verify=True)``
+    (B 1024) serve it through the kernel, and the counts are read. Then the
+    kernel against its plain version at B 128 and B 1024 over that table and
+    at bench_pallas_topk's float32 shape, each call allocating no float32
+    copy of its table; then the scale train step. Returns (launches, rows,
+    the step's row)."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.ops.topk import approx_topk_scores, certified_topk_scores
+
+    mod = _kernel_module(KERNELS[0])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    T = torch.randn((SCALE_ITEMS, SCALE_DIM), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    users = {B: torch.randn((B, SCALE_DIM), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for B in SCALE_BLOCKS}
+    _sync()
+    launches = {k["name"]: 0 for k in KERNELS}
+    before = mod.launches
+    s_c, i_c = certified_topk_scores(users[128], T, SCALE_K)
+    s_a, i_a, certified = approx_topk_scores(users[1024], T, SCALE_K, verify=True)
+    _sync()
+    launches["fused_topk"] = mod.launches - before
+    if launches["fused_topk"] != 2:
+        fail(f"scale: {launches['fused_topk']} kernel launches for the 2 retrieval calls")
+    if not bool(certified.all()) or s_a.dtype != torch.float32 or i_a.dtype != torch.int32:
+        fail(f"scale: approx_topk_scores gave {s_a.dtype}, {i_a.dtype}, "
+             f"{int((~certified).sum())} uncertified rows")
+    for label, U, s, i in (("certified", users[128], s_c, i_c), ("approx", users[1024], s_a, i_a)):
+        s_p, i_p = mod.fused_topk_scores_reference(U, T, SCALE_K)
+        err, near = _compare_topk(f"scale {label}", U, T, SCALE_K, s, i, s_p, i_p)
+        print(f"scale: {label}_topk_scores (B {U.shape[0]}, I {SCALE_ITEMS}, d {SCALE_DIM}, "
+              f"bfloat16, k' {SCALE_K}) through the kernel: max_abs_err {err}, near-tie swaps "
+              f"{near}; {card}", flush=True)
+    del s_c, i_c, s_a, i_a, certified
+
+    rows = [scale_kernel_row(mod, users[B], T, SCALE_K, f"scale B{B}", card)
+            for B in SCALE_BLOCKS]
+    del T, users
+    B, I, d = PALLAS_BENCH
+    gen32 = torch.Generator(device="cuda").manual_seed(7)
+    U32 = torch.randn((B, d), generator=gen32, device="cuda")
+    T32 = torch.randn((I, d), generator=gen32, device="cuda")
+    rows.append(scale_kernel_row(mod, U32, T32, SCALE_K, "pallas bench", card, reps=20))
+    del U32, T32
+    step = time_scale_step(os.path.join(work_dir, "scale"), card)
+    return launches, rows, step
+
+
 def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
     """The registry's trainer for ``model``, on the card with every
     parameter and buffer (FairGo's propagation matrices included): a
@@ -2479,12 +2729,31 @@ def _median_ms(fn, reps=20, calls=1):
 
 def _library_topk(U, T, k):
     """One PyTorch call per step computing the same function: the yardstick
-    (torch.topk does not promise the tie order; the port never calls this)."""
+    (torch.topk does not promise the tie order; the port never calls this).
+    bfloat16 inputs multiply into a float32 [B, I] score matrix."""
     import torch
 
-    s = torch.matmul(U, T.T)
+    if T.dtype == torch.bfloat16:
+        s = torch.mm(U, T.T, out_dtype=torch.float32)
+    else:
+        s = torch.matmul(U, T.T)
     s[:, 0] = float("-inf")
     return torch.topk(s, k, dim=1)
+
+
+def _abs_dot(U, T, idx, block_elems=1 << 26):
+    """sum_j |U[b, j] T[idx[b, c], j]| in float32 for every slot (b, c) of
+    ``idx`` [B, k]: the rows of T gathered a block of users at a time, so
+    that no [B, I] matrix is formed (a catalog of 2M items would need 8.6 GB
+    at B 1024)."""
+    import torch
+
+    B, k = idx.shape
+    rows = max(1, block_elems // (k * U.shape[1]))
+    Ua = U.abs().float()
+    parts = [(Ua[r0:r0 + rows, None, :] * T[idx[r0:r0 + rows]].abs().float()).sum(-1)
+             for r0 in range(0, B, rows)]
+    return torch.cat(parts)
 
 
 def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offset=0):
@@ -2515,8 +2784,7 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offse
         fail(f"fused_topk[{label}]: the PAD item 0 was selected")
     fin = ~inf_p
     i_safe = (i_p.long() - col_offset).clamp_min(0)
-    abs_dot = torch.gather(U.abs() @ T.abs().T, 1, i_safe)
-    tol = 2 * d * 2.0 ** -24 * abs_dot
+    tol = 2 * d * 2.0 ** -24 * _abs_dot(U, T, i_safe)
     diff = (s_k - s_p).abs()
     diff[~fin] = 0
     err = float(diff.max()) if diff.numel() else 0.0
@@ -2536,10 +2804,10 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offse
     return err, int(((i_k != i_p) & near).sum())
 
 
-def check_fused_topk(mod, U, T, k, label, card, reps=20):
+def check_fused_topk(mod, U, T, k, label, card, reps=20, extra=None):
     """Kernel against its plain version on the same inputs (tolerance as
     ``_compare_topk`` says), then its times beside the plain version's, the
-    library yardstick's and the bound."""
+    library yardstick's and the bound; ``extra`` fields join the row."""
     import torch
 
     s_k, i_k = mod.fused_topk_scores(U, T, k)
@@ -2547,19 +2815,19 @@ def check_fused_topk(mod, U, T, k, label, card, reps=20):
     s_p, i_p = mod.fused_topk_scores_reference(U, T, k)
     B, d = U.shape
     err, n_near = _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p)
+    del s_k, i_k, s_p, i_p
 
     ms = _median_ms(lambda: mod.fused_topk_scores(U, T, k), reps)
     ms_back_to_back = _median_ms(lambda: mod.fused_topk_scores(U, T, k), reps, calls=10)
     plain_ms = _median_ms(lambda: mod.fused_topk_scores_reference(U, T, k), max(reps // 4, 3))
     library_ms = _median_ms(lambda: _library_topk(U, T, k), reps)
-    I = T.shape[0]
-    ops_ms = 2.0 * B * I * d / PEAK_F32_FLOPS * 1e3
-    bytes_ms = (4.0 * (B * d + I * d) + 8.0 * B * k) / PEAK_BYTES * 1e3
+    bound, bound_by = _bound_ms(U, T, k)
     row = {
-        "label": label, "B": B, "I": I, "d": d, "k": k, "max_abs_err": err,
+        "label": label, "B": B, "I": T.shape[0], "d": d, "k": k,
+        "dtype": str(T.dtype).replace("torch.", ""), "max_abs_err": err,
         "near_tie_swaps": n_near, "ms": ms, "ms_back_to_back": ms_back_to_back,
-        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "card": card,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+        "bound_by": bound_by, **(extra or {}), "card": card,
     }
     print(f"kernel: fused_topk {json.dumps(row)}", flush=True)
     return row
@@ -2598,47 +2866,54 @@ def main():
             print(f"build: {name} -> {os.path.relpath(fut.result(), REPO)}", flush=True)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # phase 3: the serving main path
+    # phase 3: catalog scale (the bf16 table of 2M items, the scale step),
+    # first of the paths: in a process that has run the later phases, the
+    # profiler has shown no kernel of a fused_topk call
     work = os.path.join(REPO, PACKAGE, "_build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    scale_launches, scale_rows, scale_step = scale(work, card)
+    print(f"scale: phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 4: the serving main path
     t0 = time.perf_counter()
     data_root = write_dataset(os.path.join(work, "data"))
     print(f"serve: wrote the dataset in {time.perf_counter() - t0:.3f} s", flush=True)
     launches, trainer, test_data = serve(data_root, work)
 
-    # phase 4: the training main path
+    # phase 5: the training main path
     train_launches = train(data_root, work, card)
 
-    # phase 5: the adversarial main path and the other backbones
+    # phase 6: the adversarial main path and the other backbones
     adv_work = os.path.join(work, "adversarial")
     t0 = time.perf_counter()
     write_dataset(data_root, name=ADV_DATASET, attributes=True)
     print(f"adversarial: wrote the dataset in {time.perf_counter() - t0:.3f} s", flush=True)
     adv_launches, adv_rows = adversarial(data_root, adv_work, card)
 
-    # phase 6: the fair models with their published protocol
+    # phase 7: the fair models with their published protocol
     t0 = time.perf_counter()
     published_launches = published(data_root, os.path.join(work, "published"), card)
     print(f"published: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 7: FairGo, pretrain then adversarial finetune
+    # phase 8: FairGo, pretrain then adversarial finetune
     t0 = time.perf_counter()
     fairgo_launches = fairgo(data_root, os.path.join(work, "fairgo"), card)
     print(f"fairgo: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 8: resident epochs, the search and the certified top-k
+    # phase 9: resident epochs, the search and the certified top-k
     U, T, k_prime = serving_inputs(trainer, test_data)
     t0 = time.perf_counter()
     resident_launches = resident(data_root, os.path.join(work, "resident"), card,
                                  (U, T, k_prime))
     print(f"resident: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 9: the parallel layer on a world of one
+    # phase 10: the parallel layer on a world of one
     t0 = time.perf_counter()
     parallel_launches, shard_row = parallel(data_root, work, card, (U, T, k_prime))
     print(f"parallel: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 10: every kernel against its plain version
+    # phase 11: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     gen = torch.Generator().manual_seed(2020)
     rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)] + adv_rows
@@ -2661,18 +2936,24 @@ def main():
                            **adv_launches, "published": published_launches[k["name"]],
                            "fairgo": fairgo_launches[k["name"]],
                            "resident": resident_launches[k["name"]],
-                           "parallel": parallel_launches[k["name"]]} for k in KERNELS}
+                           "parallel": parallel_launches[k["name"]],
+                           "scale": scale_launches[k["name"]]} for k in KERNELS}
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
         "launches": sum(by_path[k["name"]].values()),
         "launches_by_path": by_path[k["name"]],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + [shard_row]),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + [shard_row] + scale_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shard_mode": {key: shard_row[key] for key in (
             "B", "I", "k", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "scale": {r["label"]: {key: r[key] for key in (
+            "B", "I", "d", "k", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for r in scale_rows},
+        "scale_train_step": {key: scale_step[key] for key in (
+            "step_ms", "examples_per_s", "peak_memory_bytes", "bound_ms")},
     } for k in KERNELS]
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -43,28 +43,6 @@ def _host_us(fn, calls=20):
     return host
 
 
-def _kernel_times_us(fn, calls=10):
-    """Mean device time per call of each CUDA kernel that ``fn`` launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.cuda_time_total
-        for name in ("score_select_kernel", "merge_kernel"):
-            if dev_us and name in ev.key:
-                out[name] = out.get(name, 0.0) + dev_us / calls
-    return out
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="also append the JSON lines to this file")
@@ -77,7 +55,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs a CUDA card")
     sys.path.insert(0, REPO)
-    from chip_smoke import _median_ms
+    from chip_smoke import _median_ms, kernel_times_us
     from recbole_fairrec_tpu_torch.ops import fused_topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,7 +92,7 @@ def main():
             "card": card,
         }
         if args.profile:
-            row["kernels_us"] = _kernel_times_us(kernel)
+            row["kernels_us"] = kernel_times_us(kernel)
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)
     if args.out:

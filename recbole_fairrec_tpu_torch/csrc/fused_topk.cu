@@ -9,6 +9,16 @@
 // (-inf, 0). Where k' is small against the chunk, the [B, I] score matrix is
 // never written to device memory.
 //
+// Types: the item table T is float32 or bfloat16, and so are the users U,
+// in any pairing (the JAX kernel takes one dtype and accumulates in f32,
+// preferred_element_type=float32). A bf16 table is read as it is stored:
+// its rows are staged in shared memory as bf16 (cp.async, 16 B = 8
+// elements) and widened to f32 where they enter the register tile; bf16
+// users are widened when they are staged. bf16 -> f32 is exact and so is
+// the product of two bf16 values in f32, so the scores are f32 sums of the
+// exact products, as on the TPU up to summation order. An f32 call runs
+// the code it ran before bf16 was added, bit for bit.
+//
 // Shard mode (the local stage of the item-sharded top-k,
 // recbole_fairrec_tpu_torch/parallel/eval.py): T is rows [col_offset,
 // col_offset + I) of a larger table; mask_pad = 0 leaves its row 0 (not the
@@ -20,9 +30,12 @@
 // k' 173) the products are 2*B*I*d = 2.855 GFLOP of plain f32 FMA on the
 // CUDA cores: 42.6 us at the 67 TFLOP/s non-tensor f32 peak. The bytes
 // (2.5 MB in, 8.5 MB out) take ~3 us at 3.35 TB/s. So f32 FMA bounds it.
-// Tensor cores are ruled out: TF32 keeps ~10 mantissa bits and reorders
-// near-tied items, and the ranking contract is exact f32 (the JAX call asks
-// for precision="highest").
+// Tensor cores are ruled out for f32 tables: TF32 keeps ~10 mantissa bits
+// and reorders near-tied items, and the ranking contract is exact f32 (the
+// JAX call asks for precision="highest"). A bf16 table of 2M items x 128
+// (537 MB) is read in 0.16 ms at 3.35 TB/s; its products (B 128: 68.7
+// GFLOP) would take 0.07 ms on bf16 tensor cores, which keep the products
+// exact, but this version runs them as f32 FMA (1.03 ms at B 128).
 //
 // Design: two kernels per call, on one stream.
 //  1. score_select_kernel, grid (ceil(B/64), S), 256 threads. A block owns
@@ -78,21 +91,31 @@
 //    201 MB at k' 2048 (I 3630), 805 MB at k' 4096 (I 16384, where every
 //    list is a whole chunk).
 //  * Products are explicit fmaf: plain f32, no TF32.
-//  * VEC (d % 4 == 0, U and T 16-byte aligned) copies U and T with 16-byte
-//    cp.async; otherwise 4-byte copies. Depth past d, users past B and items
-//    past the chunk are zero-filled.
+//  * VEC (16 bytes of T a whole number of elements of d: d % 4 == 0 for
+//    f32, d % 8 == 0 for bf16; T, and U where it is f32, 16-byte aligned)
+//    copies T (and f32 U) with 16-byte cp.async; otherwise f32 takes 4-byte
+//    cp.async and bf16 T plain 2-byte loads. bf16 U is always read with
+//    plain loads and widened (once per block). Depth past d, users past B
+//    and items past the chunk are zero-filled.
+//  * Catalog scale: S = ceil(I / chunk) is the grid's y extent, at most
+//    65,535 (I up to 33.5M at chunk 512); the wrapper refuses more by name.
+//    At I 2M the lists hold 172,032 entries a user, too many for shared
+//    memory, so the merge reads them in place from the scratch.
 //
 // C interface (ctypes, see ops/fused_topk.py):
 //   int fused_topk_max_smem()  -> opt-in shared memory per block, bytes
+//   long long fused_topk_smem_bytes(d, chunk, t_bf16) -> score block bytes
 //   int fused_topk_launch(U, T, scratch, out_s, out_i, B, I, d, k, chunk, S,
 //                         n, Kp, team, keys_in_smem, vec, smem1, smem2,
-//                         col_offset, mask_pad, stream)
+//                         col_offset, mask_pad, u_bf16, t_bf16, stream)
 //     -> cudaGetLastError() code of the first launch that failed, else 0
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -104,12 +127,19 @@ constexpr int kThreads = 256;  // threads per block, both kernels
 constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 8;             // users per thread
 constexpr int kTN = 8;             // items per thread
-constexpr int kTStride = kBK + 4;  // floats per T tile row: rows r..r+7 hit 8 bank groups
+// elements per T tile row. f32: kBK + 4 = 80 B; bf16: kBK + 8 = 48 B (12
+// words). Either way the 8 rows r..r+7 that a warp reads at one depth fall
+// on 8 disjoint bank groups, and every row starts 16-byte aligned.
+template <typename TT>
+__host__ __device__ constexpr int t_stride() {
+  return std::is_same<TT, float>::value ? kBK + 4 : kBK + 8;
+}
 constexpr int kKeyPad = 8;         // key rows are chunk + 8 words: 4 rows x 8 columns, 32 banks
 constexpr int kMaxChunk = 512;     // items per chunk, at most: its keys fit 16 registers a lane
 constexpr int kKeysPerLane = kMaxChunk / 32;
 constexpr int kUsersAtOnce = 2;    // users a warp selects for together
 constexpr int kSlack = 32;         // keys a chunk's list may hold beyond k' (for k' > 1)
+constexpr int kMaxSplits = 65535;  // gridDim.y
 // static shared memory of merge_kernel, at most; the wrapper keeps its
 // dynamic bytes within the opt-in limit less this (MERGE_STATIC_SMEM)
 constexpr int kMergeStaticSmem = 256;
@@ -120,6 +150,22 @@ constexpr unsigned kNegInfKey = 0x007fffffu;  // order_key(-inf)
 // 4 i + (lane & 3) and items (lane >> 2) + 8 j of it
 static_assert(2 * 32 == kBM && 4 * 64 == kBN && kWarps == 8, "8 warps of 32 x 64");
 static_assert(kTM * 4 == 32 && kTN * 8 == 64, "thread tile is 8 users x 8 items");
+
+// Dynamic shared memory of a score + select block, in the order of its
+// layout: us[kBM][dpad + 4] f32 | ring[kStages][kBN][t_stride] TT |
+// keys[kBM][chunk + kKeyPad] u32. ops/fused_topk.py::smem_bytes mirrors it;
+// the launch refuses a plan whose bytes differ.
+template <typename TT>
+__host__ __device__ constexpr long long score_smem_bytes(int d, int chunk) {
+  return 4ll * kBM * ((d + kBK - 1) / kBK * kBK + 4) +
+         static_cast<long long>(sizeof(TT)) * kStages * kBN * t_stride<TT>() +
+         4ll * kBM * (chunk + kKeyPad);
+}
+static_assert(score_smem_bytes<float>(64, 512) == 211968, "the serving shape's f32 block");
+static_assert(score_smem_bytes<__nv_bfloat16>(128, 512) == 203776, "a d 128 bf16 block");
+static_assert((kStages * kBN * t_stride<__nv_bfloat16>() * 2) % 16 == 0 &&
+                  (kStages * kBN * t_stride<float>() * 4) % 16 == 0,
+              "the key block starts 16-byte aligned");
 
 // 32-bit key whose unsigned order is the float order; -0.0 maps to +0.0.
 __device__ __forceinline__ unsigned order_key(float s) {
@@ -172,45 +218,65 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copy T[n0 : n0+kBN, k0 : k0+kBK] into a ring slot; items >= n_end and
 // depth >= d are zero-filled. A thread's copies are a fixed pattern (rows
 // tid / copies-per-row + a multiple of the rows per pass), unrolled, so a
-// tile costs a few instructions beside its step's 1,024 FMA.
-template <bool VEC>
-__device__ __forceinline__ void load_t_tile(float* dst, const float* __restrict__ T, int n0,
+// tile costs a few instructions beside its step's 1,024 FMA. VEC copies 16
+// bytes (4 f32 or 8 bf16) by cp.async; otherwise f32 copies 4 bytes by
+// cp.async and bf16 one element by a plain load and store (cp.async has no
+// 2-byte form), which the ring's barriers order like the copies.
+template <typename TT, bool VEC>
+__device__ __forceinline__ void load_t_tile(TT* dst, const TT* __restrict__ T, int n0,
                                             int n_end, int k0, int d, int tid) {
-  constexpr int kWidth = VEC ? 4 : 1;           // floats per copy
-  constexpr int kPerRow = kBK / kWidth;         // copies per row
+  constexpr int kTS = t_stride<TT>();
+  constexpr int kWidth = VEC ? 16 / static_cast<int>(sizeof(TT)) : 1;  // elements per copy
+  constexpr int kPerRow = kBK / kWidth;                                 // copies per row
   constexpr int kRowsPerPass = kThreads / kPerRow;
   static_assert(kThreads % kPerRow == 0 && kBN % kRowsPerPass == 0, "copy pattern");
   const int r0 = tid / kPerRow;
   const int c = tid % kPerRow * kWidth;
   const bool col_ok = k0 + c < d;
-  const float* src = T + static_cast<size_t>(n0 + r0) * d + k0 + c;
-  float* out = dst + r0 * kTStride + c;
+  const TT* src = T + static_cast<size_t>(n0 + r0) * d + k0 + c;
+  TT* out = dst + r0 * kTS + c;
 #pragma unroll
   for (int q = 0; q < kBN / kRowsPerPass; ++q) {
     const bool valid = col_ok && n0 + r0 + q * kRowsPerPass < n_end;
-    const float* from = valid ? src + static_cast<size_t>(q) * kRowsPerPass * d : T;
-    if (VEC) {
-      cp_async16(out + q * kRowsPerPass * kTStride, from, valid);
+    const TT* from = valid ? src + static_cast<size_t>(q) * kRowsPerPass * d : T;
+    if constexpr (VEC) {
+      cp_async16(out + q * kRowsPerPass * kTS, from, valid);
+    } else if constexpr (std::is_same<TT, float>::value) {
+      cp_async4(out + q * kRowsPerPass * kTS, from, valid);
     } else {
-      cp_async4(out + q * kRowsPerPass * kTStride, from, valid);
+      out[q * kRowsPerPass * kTS] = valid ? *from : __float2bfloat16(0.0f);
     }
   }
 }
 
-template <bool VEC>
+// Four consecutive elements of a ring row (depth q..q+3) as f32. A bf16 is
+// the high half of its f32: widening is a shift, exact.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+template <typename TU, typename TT, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
-score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
+score_select_kernel(const TU* __restrict__ U, const TT* __restrict__ T,
                     unsigned long long* __restrict__ lists, unsigned* __restrict__ bounds,
                     int B, int I, int d,
                     int k, int chunk, int mask_pad) {
+  constexpr int kTS = t_stride<TT>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // layout: us[kBM][ustride] | ring[kStages][kBN][kTStride] | keys[kBM][kstride]
+  // layout (score_smem_bytes): us[kBM][ustride] f32 | ring[kStages][kBN][kTS] TT |
+  // keys[kBM][kstride]
   const int dpad = (d + kBK - 1) / kBK * kBK;
   const int ustride = dpad + 4;
   const int kstride = chunk + kKeyPad;
   float* us = reinterpret_cast<float*>(smem_raw);
-  float* ring = us + kBM * ustride;
-  unsigned* keys = reinterpret_cast<unsigned*>(ring + kStages * kBN * kTStride);
+  TT* ring = reinterpret_cast<TT*>(us + kBM * ustride);
+  unsigned* keys = reinterpret_cast<unsigned*>(ring + kStages * kBN * kTS);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -225,8 +291,16 @@ score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
   const int nsteps = ntiles * nk;
 
   // ---- products: [64 users x n items] into keys ----
-  // U's rows join the first copy group (zero-filled past d and past B)
-  if (VEC) {
+  // U's rows join the first copy group (zero-filled past d and past B);
+  // bf16 rows are widened here, by plain loads
+  if constexpr (!std::is_same<TU, float>::value) {
+    for (int e = tid; e < kBM * dpad; e += kThreads) {
+      const int m = e / dpad;
+      const int c = e % dpad;
+      const bool valid = b0 + m < B && c < d;
+      us[m * ustride + c] = valid ? __bfloat162float(U[static_cast<size_t>(b0 + m) * d + c]) : 0.0f;
+    }
+  } else if constexpr (VEC) {
     for (int e = tid; e < kBM * (dpad / 4); e += kThreads) {
       const int m = e / (dpad / 4);
       const int c = (e % (dpad / 4)) * 4;
@@ -245,7 +319,7 @@ score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nsteps) {
       const int tile = s / nk;
-      load_t_tile<VEC>(ring + s * kBN * kTStride, T, c0 + tile * kBN, n_end,
+      load_t_tile<TT, VEC>(ring + s * kBN * kTS, T, c0 + tile * kBN, n_end,
                        (s - tile * nk) * kBK, d, tid);
     }
     cp_async_commit();
@@ -271,7 +345,7 @@ score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
     __syncthreads();
     if (ld_tile < ntiles) {
       const int nslot = slot == 0 ? kStages - 1 : slot - 1;  // (step + kStages - 1) % kStages
-      load_t_tile<VEC>(ring + nslot * kBN * kTStride, T, c0 + ld_tile * kBN, n_end,
+      load_t_tile<TT, VEC>(ring + nslot * kBN * kTS, T, c0 + ld_tile * kBN, n_end,
                        ld_ks * kBK, d, tid);
     }
     cp_async_commit();
@@ -280,14 +354,13 @@ score_select_kernel(const float* __restrict__ U, const float* __restrict__ T,
       ++ld_tile;
     }
 
-    const float* ts = ring + slot * kBN * kTStride + wi * kTStride;
+    const TT* ts = ring + slot * kBN * kTS + wi * kTS;
     const float* uw = us + wu * ustride + ks * kBK;
 #pragma unroll
     for (int q = 0; q < kBK; q += 4) {
       float4 t[kTN];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        t[j] = *reinterpret_cast<const float4*>(ts + 8 * j * kTStride + q);
+      for (int j = 0; j < kTN; ++j) t[j] = load4(ts + 8 * j * kTS + q);
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const float4 u = *reinterpret_cast<const float4*>(uw + 4 * i * ustride + q);
@@ -722,6 +795,27 @@ cudaError_t set_smem(long long smem) {
   return err;
 }
 
+template <typename TU, typename TT>
+cudaError_t launch_score(const void* U, const void* T, unsigned long long* ls, unsigned* bd,
+                         int B, int I, int d, int k, int chunk, int mask_pad, int vec,
+                         dim3 grid, long long smem, cudaStream_t st) {
+  const auto* u = static_cast<const TU*>(U);
+  const auto* t = static_cast<const TT*>(T);
+  cudaError_t err;
+  if (vec) {
+    err = set_smem<score_select_kernel<TU, TT, true>>(smem);
+    if (err != cudaSuccess) return err;
+    score_select_kernel<TU, TT, true><<<grid, kThreads, smem, st>>>(u, t, ls, bd, B, I, d, k,
+                                                                    chunk, mask_pad);
+  } else {
+    err = set_smem<score_select_kernel<TU, TT, false>>(smem);
+    if (err != cudaSuccess) return err;
+    score_select_kernel<TU, TT, false><<<grid, kThreads, smem, st>>>(u, t, ls, bd, B, I, d, k,
+                                                                     chunk, mask_pad);
+  }
+  return cudaGetLastError();
+}
+
 template <int TEAM, int R>
 cudaError_t launch_merge(const unsigned long long* ls, const unsigned* bd, float* os, int* oi,
                          int B, int k,
@@ -749,20 +843,25 @@ int fused_topk_max_smem() {
   return bytes;
 }
 
+long long fused_topk_smem_bytes(int d, int chunk, int t_bf16) {
+  return t_bf16 ? score_smem_bytes<__nv_bfloat16>(d, chunk) : score_smem_bytes<float>(d, chunk);
+}
+
 int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, void* out_i, int B, int I, int d, int k, int chunk, int S,
                       int n, int Kp, int team, int keys_in_smem, int vec, long long smem1,
-                      long long smem2, int col_offset, int mask_pad, void* stream) {
+                      long long smem2, int col_offset, int mask_pad, int u_bf16, int t_bf16,
+                      void* stream) {
   const int lmax = list_len(k, chunk);
   const int last = I - (S - 1) * chunk;
   if (B <= 0 || I <= 0 || d <= 0 || k <= 0 || chunk <= 0 || chunk % kBN != 0 ||
-      chunk > kMaxChunk || S <= 0 || last <= 0 || last > chunk ||
-      n != (S - 1) * lmax + (lmax < last ? lmax : last) || Kp < (k < n ? k : n))
+      chunk > kMaxChunk || S <= 0 || S > kMaxSplits || last <= 0 || last > chunk ||
+      n != (S - 1) * lmax + (lmax < last ? lmax : last) || Kp < (k < n ? k : n) ||
+      smem1 != fused_topk_smem_bytes(d, chunk, t_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (vec && ((d & 3) != 0 || (reinterpret_cast<uintptr_t>(T) & 15) != 0 ||
-              (reinterpret_cast<uintptr_t>(U) & 15) != 0))
+  // 16 bytes of a T row must be whole elements of d, and every 16-byte copy aligned
+  if (vec && ((d & (t_bf16 ? 7 : 3)) != 0 || (reinterpret_cast<uintptr_t>(T) & 15) != 0 ||
+              (!u_bf16 && (reinterpret_cast<uintptr_t>(U) & 15) != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* u = static_cast<const float*>(U);
-  const auto* t = static_cast<const float*>(T);
   auto* ls = static_cast<unsigned long long*>(scratch);
   // B * S bounds follow the B * S * lmax list entries
   auto* bd = reinterpret_cast<unsigned*>(ls + static_cast<size_t>(B) * S * lmax);
@@ -772,16 +871,17 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
 
   const dim3 grid1((B + kBM - 1) / kBM, S);
   cudaError_t err;
-  if (vec) {
-    err = set_smem<score_select_kernel<true>>(smem1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    score_select_kernel<true><<<grid1, kThreads, smem1, st>>>(u, t, ls, bd, B, I, d, k, chunk, mask_pad);
+  if (u_bf16) {
+    err = t_bf16 ? launch_score<__nv_bfloat16, __nv_bfloat16>(U, T, ls, bd, B, I, d, k, chunk,
+                                                              mask_pad, vec, grid1, smem1, st)
+                 : launch_score<__nv_bfloat16, float>(U, T, ls, bd, B, I, d, k, chunk, mask_pad,
+                                                      vec, grid1, smem1, st);
   } else {
-    err = set_smem<score_select_kernel<false>>(smem1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    score_select_kernel<false><<<grid1, kThreads, smem1, st>>>(u, t, ls, bd, B, I, d, k, chunk, mask_pad);
+    err = t_bf16 ? launch_score<float, __nv_bfloat16>(U, T, ls, bd, B, I, d, k, chunk, mask_pad,
+                                                      vec, grid1, smem1, st)
+                 : launch_score<float, float>(U, T, ls, bd, B, I, d, k, chunk, mask_pad, vec,
+                                              grid1, smem1, st);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int pu = S * lmax;

@@ -6,6 +6,7 @@ from .dataloader import (
     FullSortEvalDataLoader,
     NegSampleEvalDataLoader,
     TrainDataLoader,
+    UserDataLoader,
 )
 from .utils import create_dataset, create_samplers, data_preparation, get_dataloader
 
@@ -18,6 +19,7 @@ __all__ = [
     "FullSortEvalDataLoader",
     "NegSampleEvalDataLoader",
     "TrainDataLoader",
+    "UserDataLoader",
     "create_dataset",
     "create_samplers",
     "data_preparation",

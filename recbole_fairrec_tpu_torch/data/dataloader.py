@@ -19,12 +19,14 @@ payloads, batch-size rules and numpy RNG call order:
   positive_u, positive_i) with history = used − positive, from flat CSR
   (indptr, values) structures built once at construction;
 * ``FOCFDataLoader`` — item-grouped train batches (every row of randomly
-  drawn items until the row budget fills).
+  drawn items until the row budget fills);
+* ``UserDataLoader`` — every user id once per pass, shuffled, in batches of
+  ``train_batch_size`` (the train loader of the autoencoder family, which
+  ``data.utils._get_AE_dataloader`` names; no model of this family uses it).
 
 Batches are :class:`Interaction` objects of CPU tensors; the trainer moves
 them to the card. Index payloads (positives, histories, row ids) stay numpy,
-since the collector that consumes them is host numpy. ``UserDataLoader`` is
-not ported (no model of the family uses it).
+since the collector that consumes them is host numpy.
 """
 
 from __future__ import annotations
@@ -556,6 +558,34 @@ class FullSortEvalDataLoader(AbstractDataLoader):
 
         self.pr += self.step
         return user_df, (history_u, history_i), positive_u, positive_i
+
+
+class UserDataLoader(AbstractDataLoader):
+    """Every user id (PAD included) once per pass, shuffled by numpy's
+    global generator, in batches of ``train_batch_size``."""
+
+    def __init__(self, config, dataset, sampler, shuffle=False):
+        if shuffle is False:
+            shuffle = True
+        self.uid_field = dataset.uid_field
+        self.user_list = Interaction({self.uid_field: np.arange(dataset.user_num)})
+        super().__init__(config, dataset, sampler, shuffle=shuffle)
+
+    def _init_batch_size_and_step(self):
+        self.step = self.config["train_batch_size"]
+        self.set_batch_size(self.step)
+
+    @property
+    def pr_end(self):
+        return len(self.user_list)
+
+    def _shuffle(self):
+        self.user_list.shuffle()
+
+    def _next_batch_data(self):
+        cur_data = self.user_list[self.pr : self.pr + self.step]
+        self.pr += self.step
+        return cur_data
 
 
 class FOCFDataLoader(TrainDataLoader):

@@ -23,6 +23,7 @@ from .dataloader import (
     FullSortEvalDataLoader,
     NegSampleEvalDataLoader,
     TrainDataLoader,
+    UserDataLoader,
 )
 from .dataset import Dataset
 
@@ -143,6 +144,12 @@ def get_dataloader(config, phase):
         return register_table[config["model"]](config, phase)
     if phase == "train":
         return TrainDataLoader
+    return _eval_loader_class(config)
+
+
+def _get_AE_dataloader(config, phase):
+    if phase == "train":
+        return UserDataLoader
     return _eval_loader_class(config)
 
 

@@ -2,11 +2,15 @@
 (``csrc/fused_topk.cu``) and its plain PyTorch version.
 
 Counterpart of ``recbole_fairrec_tpu/ops/pallas/fused_topk.py``. For
-``user_emb [B, d]`` and ``item_table [I, d]`` (float32) it returns the k'
-best items of every row of ``user_emb @ item_table.T`` as
-``(scores [B, k'] float32, idx [B, k'] int32)``, ordered by (score
-descending, item index ascending), with item 0 ([PAD]) never selected and
-a slot without an item holding (−inf, 0).
+``user_emb [B, d]`` and ``item_table [I, d]`` (each float32 or bfloat16) it
+returns the k' best items of every row of ``user_emb @ item_table.T``,
+summed in float32, as ``(scores [B, k'] float32, idx [B, k'] int32)``,
+ordered by (score descending, item index ascending), with item 0 ([PAD])
+never selected and a slot without an item holding (−inf, 0). A bfloat16
+table is read as it is stored (the wrapper makes no float32 copy of it);
+the kernel widens each value as it enters the products, which are then
+exact in float32, as under the JAX call's ``preferred_element_type``.
+Other dtypes (float16 among them) raise ``TypeError``.
 
 Shard mode (the local stage of ``parallel.eval.distributed_topk_scores``):
 ``col_offset`` is added to the index of every selected item (the table is
@@ -44,6 +48,11 @@ MAX_K = 4096
 # tile, T tiles in flight, padding of a key row, threads per merge block.
 BM, BN, BK, STAGES, KEY_PAD, MERGE_THREADS = 64, 256, 16, 3, 8, 256
 MAX_CHUNK = 512  # kMaxChunk: a chunk's keys fit 16 registers per lane
+MAX_SPLITS = 65535  # kMaxSplits: the score grid's y extent (chunks)
+# t_stride: elements of a T ring row by element size (f32 80 B, bf16 48 B)
+T_STRIDE = {4: BK + 4, 2: BK + 8}
+# the dtypes the kernel reads, for users and table alike, in any pairing
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 SLACK = 32  # kSlack: keys a chunk's list may hold beyond k' (for k' > 1)
 MIN_BLOCKS_PER_SM = 2
 MERGE_WARP_MAX_K = 512  # the merge sorts up to this many winners with one warp
@@ -96,13 +105,15 @@ def _lib():
         lib = ctypes.CDLL(build())
         lib.fused_topk_max_smem.restype = ctypes.c_int
         lib.fused_topk_max_smem.argtypes = []
+        lib.fused_topk_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.fused_topk_launch.restype = ctypes.c_int
         lib.fused_topk_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
@@ -127,11 +138,13 @@ def _pow2_at_least(n):
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def smem_bytes(d, chunk):
-    """Dynamic shared memory of one score + select block (layout in the CUDA
-    source): U rows, the T ring, the [BM, chunk] key block."""
+def smem_bytes(d, chunk, esize=4):
+    """Dynamic shared memory of one score + select block (``score_smem_bytes``
+    in the CUDA source): f32 U rows, the T ring in the table's element type
+    (``esize`` bytes), the [BM, chunk] key block."""
     dpad = _ceil_div(d, BK) * BK
-    return 4 * (BM * (dpad + 4) + STAGES * BN * (BK + 4) + BM * (chunk + KEY_PAD))
+    return (4 * BM * (dpad + 4) + esize * STAGES * BN * T_STRIDE[esize]
+            + 4 * BM * (chunk + KEY_PAD))
 
 
 class MergePlan(NamedTuple):
@@ -181,14 +194,22 @@ def scratch_entries(n_users, top_k, plan):
     return n_users * plan.splits * list_len(top_k, plan.chunk)
 
 
-def launch_plan(n_users, n_items, d, smem_limit, n_sm):
+def launch_plan(n_users, n_items, d, smem_limit, n_sm, esize=4):
     """The chunk is as large as ``smem_limit`` allows (a multiple of BN), cut
-    further until the grid holds MIN_BLOCKS_PER_SM blocks per SM."""
-    chunk_max = min(MAX_CHUNK, (smem_limit - smem_bytes(d, 0)) // (4 * BM) // BN * BN)
+    further until the grid holds MIN_BLOCKS_PER_SM blocks per SM. ``esize``
+    is the table's element size (4 float32, 2 bfloat16). A catalog that
+    needs more than MAX_SPLITS chunks raises."""
+    chunk_max = min(MAX_CHUNK,
+                    (smem_limit - smem_bytes(d, 0, esize)) // (4 * BM) // BN * BN)
     if chunk_max < BN:
         raise ValueError(
-            f"fused_topk: d={d} needs {smem_bytes(d, BN)} bytes of shared memory per "
-            f"block, more than the card's {smem_limit}"
+            f"fused_topk: d={d} needs {smem_bytes(d, BN, esize)} bytes of shared memory "
+            f"per block, more than the card's {smem_limit}"
+        )
+    if _ceil_div(n_items, chunk_max) > MAX_SPLITS:
+        raise ValueError(
+            f"fused_topk: I={n_items} items need {_ceil_div(n_items, chunk_max)} chunks of "
+            f"{chunk_max}, more than the grid's {MAX_SPLITS}"
         )
     user_blocks = _ceil_div(n_users, BM)
     target = MIN_BLOCKS_PER_SM * n_sm
@@ -196,7 +217,7 @@ def launch_plan(n_users, n_items, d, smem_limit, n_sm):
     chunk = min(chunk_max, _ceil_div(_ceil_div(n_items, splits), BN) * BN)
     while user_blocks * _ceil_div(n_items, chunk) < target and chunk > BN:
         chunk -= BN
-    return Plan(BM, chunk, _ceil_div(n_items, chunk), smem_bytes(d, chunk))
+    return Plan(BM, chunk, _ceil_div(n_items, chunk), smem_bytes(d, chunk, esize))
 
 
 def fused_topk_scores_reference(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
@@ -209,16 +230,17 @@ def fused_topk_scores_reference(user_emb, item_table, top_k, col_offset=0, mask_
     return scores, idx
 
 
-def _launch_args(device, B, I, d, top_k):
-    """For these shapes on this device, made once: the scratch's 8-byte
-    words, the launch's shape arguments before ``vec`` and its two shared
-    memory sizes after it (the wrapper's host time is part of every call)."""
-    key = (device.index, B, I, d, top_k)
+def _launch_args(device, B, I, d, top_k, esize):
+    """For these shapes and the table's element size on this device, made
+    once: the scratch's 8-byte words, the launch's shape arguments before
+    ``vec`` and its two shared memory sizes after it (the wrapper's host
+    time is part of every call)."""
+    key = (device.index, B, I, d, top_k, esize)
     args = _LAUNCH_ARGS.get(key)
     if args is None:
         smem_limit = _lib().fused_topk_max_smem()
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = launch_plan(B, I, d, smem_limit, n_sm)
+        plan = launch_plan(B, I, d, smem_limit, n_sm, esize)
         merge = merge_plan(I, top_k, plan, smem_limit)
         # the lists, then one 4-byte lower bound per (user, chunk)
         words = scratch_entries(B, top_k, plan) + _ceil_div(B * plan.splits, 2)
@@ -230,15 +252,18 @@ def _launch_args(device, B, I, d, top_k):
 
 def _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad):
     (B, d), device = user_emb.shape, user_emb.device
-    words, shape, smem = _launch_args(device, B, item_table.shape[0], d, top_k)
+    esize = item_table.element_size()
+    words, shape, smem = _launch_args(device, B, item_table.shape[0], d, top_k, esize)
     scratch = torch.empty(words, dtype=torch.int64, device=device)
     u, t = user_emb.data_ptr(), item_table.data_ptr()
-    vec = int(d % 4 == 0 and u % 16 == 0 and t % 16 == 0)
+    u_bf16 = user_emb.dtype == torch.bfloat16
+    # 16-byte copies of T (and of f32 users; bf16 users are read by plain loads)
+    vec = int(d % (16 // esize) == 0 and t % 16 == 0 and (u_bf16 or u % 16 == 0))
     # the raw handle of the current stream, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     return _lib().fused_topk_launch(
         u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem,
-        int(col_offset), int(mask_pad), stream,
+        int(col_offset), int(mask_pad), int(u_bf16), int(esize == 2), stream,
     )
 
 
@@ -252,6 +277,10 @@ def fused_topk_scores(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
         )
     if not 1 <= top_k <= MAX_K:
         raise ValueError(f"fused_topk: k'={top_k} is outside [1, {MAX_K}]")
+    for dtype in (user_emb.dtype, item_table.dtype):
+        if dtype not in KERNEL_DTYPES:
+            raise TypeError(f"fused_topk: the kernel takes float32 or bfloat16 tensors, "
+                            f"not {dtype}")
     device, t_device = user_emb.device, item_table.device
     if device.type == "cpu" and t_device.type == "cpu":
         return fused_topk_scores_reference(user_emb, item_table, top_k, col_offset, mask_pad)
@@ -260,8 +289,6 @@ def fused_topk_scores(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
             f"fused_topk: tensors on {device} and {t_device}; "
             "both must be on the same CUDA device (or both on the CPU)"
         )
-    if user_emb.dtype != torch.float32 or item_table.dtype != torch.float32:
-        raise TypeError("fused_topk: the kernel takes float32 tensors")
     if not (user_emb.is_contiguous() and item_table.is_contiguous()):
         raise ValueError("fused_topk: the kernel takes contiguous tensors")
     B, d = user_emb.shape

@@ -1,3 +1,10 @@
-from .sampler import AbstractSampler, AliasTable, RepeatableSampler, Sampler
+from .sampler import AbstractSampler, AliasTable, KGSampler, RepeatableSampler, Sampler, SeqSampler
 
-__all__ = ["AbstractSampler", "AliasTable", "RepeatableSampler", "Sampler"]
+__all__ = [
+    "AbstractSampler",
+    "AliasTable",
+    "KGSampler",
+    "RepeatableSampler",
+    "Sampler",
+    "SeqSampler",
+]

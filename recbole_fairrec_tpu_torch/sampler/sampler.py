@@ -4,8 +4,10 @@ Counterpart of ``recbole_fairrec_tpu/sampler/sampler.py``: the same
 rejection sampling against a sorted ``uid * item_num + iid`` key array (or a
 packed bitmap of it), the same phase-aware used-id accumulation
 (train ⊂ valid ⊂ test) and the same numpy draw order, so one numpy seed gives
-the same negatives in both packages. ``SeqSampler`` and ``KGSampler`` are not
-ported yet (no model of the port uses them).
+the same negatives in both packages. ``SeqSampler`` (a negative for each
+position of a sequence) and ``KGSampler`` (negative tail entities of a
+knowledge graph) draw in the JAX package's order as well; no model of the
+family uses them.
 """
 
 from __future__ import annotations
@@ -334,3 +336,75 @@ class RepeatableSampler(AbstractSampler):
         new_sampler = copy.copy(self)
         new_sampler.phase = phase
         return new_sampler
+
+
+class SeqSampler(AbstractSampler):
+    """A negative for each position of a sequence, never equal to that
+    position's item."""
+
+    def __init__(self, dataset, distribution="uniform"):
+        self.dataset = dataset
+        self.iid_field = dataset.iid_field
+        self.user_num = dataset.user_num
+        self.item_num = dataset.item_num
+        self._stride = self.item_num
+        super().__init__(distribution=distribution)
+
+    def _get_candidates_list(self):
+        return np.asarray(self.dataset.inter_feat[self.iid_field]).tolist()
+
+    def _uni_sampling(self, sample_num):
+        return np.random.randint(1, self.item_num, sample_num)
+
+    def get_used_ids(self):
+        return np.array([set() for _ in range(self.user_num)])
+
+    def sample_neg_sequence(self, pos_sequence):
+        pos_sequence = np.asarray(pos_sequence)
+        total = len(pos_sequence)
+        value_ids = self.sampling(total)
+        bad = value_ids == pos_sequence
+        while bad.any():
+            idx = np.nonzero(bad)[0]
+            value_ids[idx] = self.sampling(len(idx))
+            bad = np.zeros(total, dtype=bool)
+            bad[idx[value_ids[idx] == pos_sequence[idx]]] = True
+        return value_ids.astype(np.int64)
+
+
+class KGSampler(AbstractSampler):
+    """Negative tail entities for head entities of a knowledge graph: a
+    drawn tail never forms a known (head, tail) triple."""
+
+    def __init__(self, dataset, distribution="uniform"):
+        self.dataset = dataset
+        self.hid_field = dataset.head_entity_field
+        self.tid_field = dataset.tail_entity_field
+        self.hid_list = np.asarray(dataset.head_entities)
+        self.tid_list = np.asarray(dataset.tail_entities)
+        self.head_entities = set(dataset.head_entities)
+        self.entity_num = dataset.entity_num
+        self._stride = self.entity_num
+        super().__init__(distribution=distribution)
+
+    def _get_candidates_list(self):
+        return list(self.hid_list) + list(self.tid_list)
+
+    def _uni_sampling(self, sample_num):
+        return np.random.randint(1, self.entity_num, sample_num)
+
+    def get_used_ids(self):
+        keys = self.hid_list.astype(np.uint64) * np.uint64(self.entity_num) + self.tid_list.astype(
+            np.uint64
+        )
+        self._used_keys = np.unique(keys)
+        return self._used_keys
+
+    def sample_by_entity_ids(self, head_entity_ids, num=1):
+        try:
+            return self.sample_by_key_ids(np.asarray(head_entity_ids), num)
+        except IndexError:
+            for head_entity_id in head_entity_ids:
+                if head_entity_id not in self.head_entities:
+                    raise ValueError(f"head_entity_id [{head_entity_id}] not exist.")
+            raise

@@ -12,6 +12,7 @@ from .common import (
     dict2str,
     early_stopping,
     ensure_dir,
+    get_environment_info,
     get_local_time,
     init_seed,
     pickle_to,
@@ -32,6 +33,7 @@ __all__ = [
     "dict2str",
     "early_stopping",
     "ensure_dir",
+    "get_environment_info",
     "get_local_time",
     "init_seed",
     "pickle_to",

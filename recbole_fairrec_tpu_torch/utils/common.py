@@ -1,4 +1,5 @@
-"""General-purpose helpers: seeding, early stopping, time/paths, colored text.
+"""General-purpose helpers: seeding, early stopping, time/paths, colored text,
+the environment summary.
 
 Counterpart of ``recbole_fairrec_tpu/utils/common.py``. Where the JAX package
 mints a ``jax.random.PRNGKey``, ``init_seed`` here returns a seeded
@@ -15,6 +16,7 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def init_seed(seed: int, reproducibility: bool = True) -> torch.Generator:
@@ -130,6 +132,26 @@ def set_color(log: str, color: str, highlight: bool = True) -> str:
     code = _ANSI.get(color, "37")
     prefix = "1;" if highlight else ""
     return f"\033[{prefix}{code}m{log}\033[0m"
+
+
+def get_flops_estimate(n_params: int) -> int:
+    """Rough FLOPs-per-example estimate used by the profiler output."""
+    return 2 * n_params
+
+
+def get_environment_info():
+    """Device inventory summary for logging, with the JAX package's keys:
+    torch's backend (``cuda`` where a card is visible, else ``cpu``), the
+    number of devices and their names, and the ``torch.distributed`` world
+    size (1 without a process group)."""
+    if torch.cuda.is_available():
+        backend = "cuda"
+        devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    else:
+        backend, devices = "cpu", ["cpu"]
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return {"backend": backend, "n_devices": len(devices), "devices": devices,
+            "process_count": world}
 
 
 def _bucket(n, quantum=256):

@@ -100,6 +100,16 @@ def test_remaining_single_device_modules_are_checked():
             "scripts/run_hyper.py", "scripts/resume_run_recbole.py"} <= rel
 
 
+def test_catalog_scale_and_surface_modules_are_checked():
+    """The modules of the catalog-scale slice (the bf16 kernel's wrapper,
+    retrieval, the samplers, loaders and helpers that complete the public
+    surface) are among the sources the import check walks."""
+    rel = {os.path.relpath(p, PACKAGE_DIR).replace(os.sep, "/") for p in _port_sources()}
+    assert {"ops/fused_topk.py", "ops/topk.py", "models/layers.py", "sampler/sampler.py",
+            "sampler/__init__.py", "data/dataloader.py", "data/utils.py", "data/__init__.py",
+            "utils/common.py", "utils/__init__.py"} <= rel
+
+
 def test_kernel_sweep_imports_no_jax():
     with open(os.path.join(REPO, "kernel_sweep.py"), encoding="utf-8") as f:
         tree = ast.parse(f.read())
@@ -259,6 +269,50 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_SCALE_AND_SURFACE_SCRIPT = r"""
+import sys
+for blocked in ("jax", "jaxlib", "optax", "recbole_fairrec_tpu"):
+    sys.modules[blocked] = None  # importing any of them raises ImportError
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke
+from recbole_fairrec_tpu_torch import Config
+from recbole_fairrec_tpu_torch.data import Dataset, UserDataLoader
+from recbole_fairrec_tpu_torch.data.utils import _get_AE_dataloader
+from recbole_fairrec_tpu_torch.ops.topk import approx_topk_scores, certified_topk_scores
+from recbole_fairrec_tpu_torch.sampler import KGSampler, SeqSampler
+from recbole_fairrec_tpu_torch.utils import get_environment_info
+from recbole_fairrec_tpu_torch.utils.common import get_flops_estimate
+work = sys.argv[2]
+root = chip_smoke.write_dataset(work + "/data", n_users=60, n_items=80, n_inter=1500)
+cfg = chip_smoke.serving_config(root, work, {"use_gpu": False, "train_batch_size": 16})
+config = Config(model="PFCN_PMF", dataset=chip_smoke.DATASET, config_dict=cfg)
+ds = Dataset(config)
+assert _get_AE_dataloader(config, "train") is UserDataLoader
+users = np.concatenate([b["user_id"].numpy() for b in UserDataLoader(config, ds, None)])
+assert sorted(users.tolist()) == list(range(ds.user_num))
+pos = np.asarray(ds.inter_feat["item_id"])[:40]
+assert (SeqSampler(ds).sample_neg_sequence(pos) != pos).all()
+class KG:
+    head_entity_field, tail_entity_field = "head_id", "tail_id"
+    head_entities, tail_entities, entity_num = [1, 2], [2, 3], 9
+assert len(KGSampler(KG()).sample_by_entity_ids([1, 2], num=3)) == 6
+assert get_environment_info()["backend"] == "cpu" and get_flops_estimate(3) == 6
+u, t = torch.randn(6, 16).bfloat16(), torch.randn(300, 16).bfloat16()
+s, i, ok = approx_topk_scores(u, t, 4, verify=True)
+assert s.dtype == torch.float32 and i.dtype == torch.int32 and bool(ok.all())
+assert torch.equal(certified_topk_scores(u, t, 4)[1], i)
+trainer = chip_smoke.scale_trainer(work + "/scale", 200, 400, 16, {"use_gpu": False})
+batch = {k: torch.from_numpy(v).long() for k, v in chip_smoke.scale_batches(200, 400, 64)[0].items()}
+assert np.isfinite(float(trainer._train_step(batch, "calculate_loss", None, trainer.optimizer)))
+leaked = sorted(m for m in sys.modules
+                if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                        "recbole_fairrec_tpu"))
+print("LEAKED", leaked)
+"""
+
 _SERVE_ON_CPU_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -332,6 +386,19 @@ def test_resident_training_and_tools_run_with_jax_blocked(tmp_path):
     afterwards no JAX, optax, JAX-package, pandas or yaml module is
     loaded."""
     proc = _run_script(_RESIDENT_AND_TOOLS_SCRIPT, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_scale_and_surface_run_with_jax_blocked(tmp_path):
+    """The catalog-scale slice and the last of the public surface on the CPU
+    in a fresh interpreter where importing JAX, optax or the JAX package
+    raises: ``UserDataLoader`` through ``_get_AE_dataloader``,
+    ``SeqSampler``, ``KGSampler``, the environment helpers, the bf16-table
+    retrieval, and the scale step (chip_smoke's trainer at a tiny size);
+    afterwards no JAX, optax, JAX-package, pandas or yaml module is
+    loaded."""
+    proc = _run_script(_SCALE_AND_SURFACE_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
 

@@ -87,6 +87,75 @@ def test_fused_topk_rejects_non_float32_on_card(card):
         fused_topk.fused_topk_scores(U, T, 3)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("u_dtype,t_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)],
+                         ids=["bf16", "f32-users-bf16-table", "bf16-users-f32-table"])
+@pytest.mark.parametrize("B,I,d,k", [
+    (6144, 3630, 64, 173),   # the serving shape
+    (64, 4097, 128, 10),     # d 128, a PAD row past a power of two
+    (77, 1001, 30, 50),      # d not a multiple of 8: plain loads of the bf16 table
+    (2000, 3001, 65, 300),   # d 65 and a short last chunk
+    (300, 5000, 32, 4096),   # the largest k'
+    (64, 50000, 8, 4096),    # lists too long for shared memory
+])
+def test_fused_topk_bf16_matches_plain(card, B, I, d, k, u_dtype, t_dtype):
+    """bfloat16 tables (and users) of small integers: every product and sum
+    is exact in float32, so the kernel agrees with the plain version (which
+    widens the values) slot for slot, ties included."""
+    gen = torch.Generator().manual_seed(2)
+    U = torch.randint(-2, 3, (B, d), generator=gen).to(u_dtype).to(card)
+    T = torch.randint(-2, 3, (I, d), generator=gen).to(t_dtype).to(card)
+    _check_slot_for_slot(U, T, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [7, 173])
+def test_fused_topk_bf16_tie_heavy(card, k):
+    """A bf16 table of values in {-1, 0, 1} with half its rows zero: most
+    scores tie, and equal scores must come out by item index."""
+    gen = torch.Generator().manual_seed(3)
+    U = torch.randint(-1, 2, (700, 64), generator=gen).to(torch.bfloat16)
+    T = torch.randint(-1, 2, (3630, 64), generator=gen).to(torch.bfloat16)
+    T[1::2] = 0
+    U, T = U.to(card), T.to(card)
+    assert int(((U.float() @ T.float().T) == 0).sum()) > 700 * 3630 // 2
+    _check_slot_for_slot(U, T, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,I,d,dtype", [(1024, 65536, 64, torch.float32),
+                                         (128, 262144, 128, torch.bfloat16)],
+                         ids=["pallas-bench-f32", "bf16-table"])
+def test_fused_topk_gaussian_within_the_near_tie_rule(card, B, I, d, dtype):
+    """Gaussian inputs at bench_pallas_topk's float32 shape (B 1024, I
+    65,536, d 64, k' 10) and over a bfloat16 table of 262,144 x 128: the
+    kernel against the plain version under chip_smoke's near-tie rule, and a
+    call allocates its outputs and scratch but no float32 copy of the table
+    (``chip_smoke._no_table_copy``)."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    U = torch.randn((B, d), generator=gen, device=card, dtype=dtype)
+    T = torch.randn((I, d), generator=gen, device=card, dtype=dtype)
+    before = fused_topk.launches
+    s, i = fused_topk.fused_topk_scores(U, T, 10)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    s_p, i_p = fused_topk.fused_topk_scores_reference(U, T, 10)
+    chip_smoke._compare_topk("gpu test", U, T, 10, s, i, s_p, i_p)
+    rise, scratch = chip_smoke._no_table_copy(fused_topk, U, T, 10, "gpu test")
+    assert rise - scratch < 4 * T.numel()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_fused_topk_refuses_other_dtypes_by_name_on_card(card, dtype):
+    U = torch.zeros(4, 8, device=card, dtype=dtype)
+    T = torch.zeros(10, 8, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
+        fused_topk.fused_topk_scores(U, T, 3)
+
+
 # ------------------------------------------------- negative sampling, on card
 
 N_USERS, N_ITEMS = 500, 3630

@@ -1,0 +1,245 @@
+"""Catalog scale on the CPU against the JAX package: bfloat16 item tables
+through the fused top-k and the retrieval entry points, the kernel's launch
+plan at bench.py's 2M-item catalog, and the scale train step at a cut size.
+
+The kernel itself runs only on the card (``test_torch_kernels_gpu.py``,
+``chip_smoke.py``'s ``scale`` phase); here the wrapper takes its plain
+version, as it does for every CPU tensor. Inputs come from numpy seeds and
+go to both packages; bfloat16 values are made by rounding float32 draws, so
+both packages hold the same numbers.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from recbole_fairrec_tpu.config import Config as JaxConfig
+from recbole_fairrec_tpu.ops.pallas.fused_topk import fused_topk_scores as pallas_fused_topk
+from recbole_fairrec_tpu.ops.topk import approx_topk_scores as jax_approx_topk
+from recbole_fairrec_tpu.trainer import Trainer as JaxTrainer
+from recbole_fairrec_tpu.utils import get_model as jax_get_model
+
+from recbole_fairrec_tpu_torch.ops import fused_topk
+from recbole_fairrec_tpu_torch.ops.topk import approx_topk_scores, certified_topk_scores
+from recbole_fairrec_tpu_torch.utils.jax_params import load_jax_params, to_jax_params
+
+H100_SMEM = 232448  # 227 KB of opt-in shared memory per block
+H100_SMS = 132
+K = 10
+
+
+def _bf16_inputs(seed, B, I, d):
+    """float32 draws rounded to bfloat16: the port's tensors and the same
+    values as float32 numpy arrays (exact in bfloat16) for JAX."""
+    rng = np.random.RandomState(seed)
+    U = torch.from_numpy(rng.randn(B, d).astype(np.float32)).to(torch.bfloat16)
+    T = torch.from_numpy(rng.randn(I, d).astype(np.float32)).to(torch.bfloat16)
+    return U, T, U.float().numpy(), T.float().numpy()
+
+
+def _assert_topk_close(s, i, ref_s, ref_i, U, T):
+    """Scores within the float32 summation-order bound, ids equal but where
+    two of the reference's adjacent scores lie within that bound.
+
+    Every product of two bfloat16 values is exact in float32, so the two
+    packages differ only by the order of the d additions: each sum is
+    within d * 2^-24 * sum_j |u_j t_j| of the exact value, two orders within
+    twice that (``tol``). A near tie is a pair of adjacent reference scores
+    within ``tol`` of each other, which the two orders may rank either way
+    (chip_smoke's near-tie rule)."""
+    s, i, ref_s, ref_i = (np.asarray(x) for x in (s, i, ref_s, ref_i))
+    d = U.shape[1]
+    abs_dot = np.take_along_axis(np.abs(U) @ np.abs(T).T, ref_i.astype(np.int64), axis=1)
+    tol = 2 * d * 2.0 ** -24 * abs_dot
+    assert s.dtype == np.float32 and i.dtype == np.int32
+    assert (np.abs(s - ref_s) <= tol).all()
+    near = np.zeros(ref_s.shape, dtype=bool)
+    close = np.abs(np.diff(ref_s, axis=1)) <= tol[:, 1:]
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    assert ((i == ref_i) | near).all()
+    assert not (i == 0).any()
+
+
+@pytest.fixture(scope="module")
+def bf16_case():
+    U, T, U32, T32 = _bf16_inputs(9, 64, 4097, 128)
+    ref_s, ref_i = pallas_fused_topk(jnp.asarray(U32, jnp.bfloat16), jnp.asarray(T32, jnp.bfloat16),
+                                     K, user_tile=64, item_tile=1024, interpret=True)
+    return U, T, U32, T32, np.asarray(ref_s), np.asarray(ref_i)
+
+
+def test_bf16_table_fused_topk_matches_pallas(bf16_case):
+    """U [64, 128] and T [4097, 128] in bfloat16, k' 10: the port's
+    ``fused_topk_scores`` (plain on the CPU) against the Pallas kernel in
+    interpret mode, which accumulates in float32
+    (``preferred_element_type``). Tolerance: ``_assert_topk_close``."""
+    U, T, U32, T32, ref_s, ref_i = bf16_case
+    s, i = fused_topk.fused_topk_scores(U, T, K)
+    _assert_topk_close(s.numpy(), i.numpy(), ref_s, ref_i, U32, T32)
+    mixed_s, mixed_i = fused_topk.fused_topk_scores(U.float(), T, K)  # f32 users, bf16 table
+    _assert_topk_close(mixed_s.numpy(), mixed_i.numpy(), ref_s, ref_i, U32, T32)
+
+
+def test_bf16_table_retrieval_matches_jax(bf16_case):
+    """``approx_topk_scores`` (with and without ``verify``) and
+    ``certified_topk_scores`` on the bfloat16 table against the JAX
+    package's ``approx_topk_scores`` (exact on the CPU) and the Pallas
+    kernel; the port's contract is unchanged: float32 scores, int32 ids,
+    every row certified."""
+    U, T, U32, T32, ref_s, ref_i = bf16_case
+    j_s, j_i, j_cert = jax_approx_topk(jnp.asarray(U32, jnp.bfloat16),
+                                       jnp.asarray(T32, jnp.bfloat16), K, verify=True)
+    assert np.asarray(j_cert).all()
+    _assert_topk_close(np.asarray(j_s), np.asarray(j_i), ref_s, ref_i, U32, T32)
+    s, i, cert = approx_topk_scores(U, T, K, verify=True)
+    assert cert.dtype == torch.bool and bool(cert.all()) and cert.shape == (64,)
+    _assert_topk_close(s.numpy(), i.numpy(), np.asarray(j_s), np.asarray(j_i), U32, T32)
+    s2, i2 = approx_topk_scores(U, T, K)
+    assert torch.equal(s2, s) and torch.equal(i2, i)
+    c_s, c_i = certified_topk_scores(U, T, K)
+    assert torch.equal(c_s, s) and torch.equal(c_i, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_kernel_dtypes_are_named_in_the_refusal(dtype):
+    """Only float32 and bfloat16 reach the kernel or its plain version; any
+    other dtype raises a TypeError that names it."""
+    U = torch.zeros(4, 8, dtype=dtype)
+    T = torch.zeros(10, 8)
+    for args in ((U, T), (T[:4], U.new_zeros(10, 8))):
+        with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
+            fused_topk.fused_topk_scores(*args, 3)
+
+
+# ------------------------------------------------------------ launch plan
+
+
+@pytest.mark.parametrize("esize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [128, 1024])
+def test_launch_plan_at_catalog_scale(B, esize):
+    """bench_scale's catalog with a PAD row (2,097,153 items, d 128, k' 10):
+    chunks of 512 (the most a block's keys take), 4,097 of them (a last
+    chunk of one item) within the grid's 65,535; a block within the opt-in
+    shared memory; lists of k' + 32 = 42 entries, 172,033 a user, too many
+    for shared memory, so the merge reads them in place; item ids fit int32;
+    the scratch is 176 MB at B 128 and 1.41 GB at B 1024."""
+    I, d = 2 * 1024 * 1024 + 1, 128
+    plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS, esize)
+    assert plan.chunk == 512 and plan.splits == 4097 <= fused_topk.MAX_SPLITS
+    assert plan.smem == fused_topk.smem_bytes(d, 512, esize) <= H100_SMEM
+    merge = fused_topk.merge_plan(I, K, plan, H100_SMEM)
+    assert merge.n == 4096 * 42 + 1 and not merge.keys_in_smem
+    assert merge.team == 32 and merge.kp == 32
+    assert merge.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
+    assert I < 2**31 and merge.n < 2**31  # ids and list positions in int32
+    assert 8 * fused_topk.scratch_entries(B, K, plan) == B * 4097 * 42 * 8
+    assert {128: 176_203_776, 1024: 1_409_630_208}[B] == 8 * fused_topk.scratch_entries(
+        B, K, plan)
+
+
+def test_launch_plan_at_the_pallas_bench_shape():
+    """bench_pallas_topk's float32 shape (B 1024, I 65,536, d 64, k' 10):
+    128 chunks of 512; the lists (5,376 entries a user) fit shared memory."""
+    plan = fused_topk.launch_plan(1024, 65536, 64, H100_SMEM, H100_SMS)
+    assert plan == (64, 512, 128, 211968)
+    merge = fused_topk.merge_plan(65536, K, plan, H100_SMEM)
+    assert merge == (128 * 42, 32, 32, True, 8 * (8 * (32 + 2) + 4 * 128 * 42))
+
+
+def test_launch_plan_refuses_past_the_grid_and_shared_memory():
+    with pytest.raises(ValueError, match="grid"):
+        fused_topk.launch_plan(128, 512 * fused_topk.MAX_SPLITS + 1, 128, H100_SMEM, H100_SMS, 2)
+    fused_topk.launch_plan(128, 512 * fused_topk.MAX_SPLITS, 128, H100_SMEM, H100_SMS, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_topk.launch_plan(128, 4096, 1024, H100_SMEM, H100_SMS, 2)
+
+
+def test_plan_bytes_match_the_cuda_layout():
+    """The CUDA source pins its block layout with static_asserts on
+    ``score_smem_bytes``; the Python plan must give the same bytes (and the
+    launch refuses any other)."""
+    with open(fused_topk.SOURCE, encoding="utf-8") as f:
+        src = f.read()
+    pins = re.findall(r"static_assert\(score_smem_bytes<(float|__nv_bfloat16)>\((\d+), (\d+)\)"
+                      r" == (\d+)", src)
+    assert {p[0] for p in pins} == {"float", "__nv_bfloat16"}
+    for ctype, d, chunk, nbytes in pins:
+        esize = 4 if ctype == "float" else 2
+        assert fused_topk.smem_bytes(int(d), int(chunk), esize) == int(nbytes)
+
+
+# ------------------------------------------------------- the scale step
+
+
+def test_scale_step_matches_jax(tmp_path):
+    """bench_scale's train step cut to 4,096 users, 8,192 items, d 128,
+    batch 1,024: the JAX package's ``Trainer._get_update_fn("calculate_loss",
+    None, "main")`` and the port's ``Trainer._train_step`` (the one
+    ``chip_smoke.py`` times at full size) from the same weights, on the
+    first batch of bench.py's RandomState(3) draws, dense Adam.
+
+    Tolerances: loss within 1e-5 relative (float32 means summed in another
+    order; measured 0). Parameters within 5e-5 absolute: Adam's first step
+    moves an element by lr * g / (|g| + eps), so where the gradient lies
+    within its float32 noise delta of 0 the two packages' steps differ by up
+    to lr * delta / eps. Gradients here are of order 1e-3 (a mean over 1,024
+    rows plus weight decay), whose noise is a few ulps of 2^-33 (1.2e-10):
+    delta <= 5e-10 gives lr * delta / eps <= 5e-5. Every other element moves
+    by the same lr * sign(g) in both (measured gap 8.6e-6 on the item
+    table, 2.4e-7 on the user table)."""
+    n_users, n_items, d, batch = 4096, 8192, 128, 1024
+    cfg = chip_smoke.scale_config_dict(str(tmp_path), d, {"state": "ERROR"})
+    jax_config = JaxConfig(model="PFCN_PMF", dataset="scale", config_dict=cfg)
+    jax_model = jax_get_model("PFCN_PMF")(jax_config, chip_smoke.ScaleDataset(n_users, n_items))
+    jt = JaxTrainer(jax_config, jax_model)
+    update = jt._get_update_fn("calculate_loss", None, "main")
+    params = jax.tree_util.tree_map(np.asarray, jt.params)
+
+    pt = chip_smoke.scale_trainer(str(tmp_path), n_users, n_items, d,
+                                  {"use_gpu": False, "state": "ERROR"})
+    load_jax_params(pt.model, params)
+    assert type(pt.optimizer) is torch.optim.Adam and pt.optimizer.defaults["weight_decay"] \
+        == jax_config["weight_decay"]
+
+    first = chip_smoke.scale_batches(n_users, n_items, batch)[0]
+    loss, new_params, _, _ = update(jt.params, jt.model_state, jt.opt_state,
+                                    jax.random.PRNGKey(0),
+                                    {k: jnp.asarray(v) for k, v in first.items()})
+    pt.model.train()
+    port_loss = pt._train_step({k: torch.from_numpy(v).long() for k, v in first.items()},
+                               "calculate_loss", None, pt.optimizer)
+    np.testing.assert_allclose(float(port_loss), float(loss), rtol=1e-5)
+    got = to_jax_params(pt.model)
+    for name, value in jax.tree_util.tree_map(np.asarray, new_params).items():
+        np.testing.assert_allclose(got[name], value, rtol=0, atol=5e-5, err_msg=name)
+        assert np.abs(got[name] - params[name]).max() > 1e-4  # the step moved the table
+
+
+def test_scale_batches_follow_bench_draw_order():
+    """chip_smoke's batches are bench_scale's: per batch, users then
+    positives then negatives from one RandomState(3), int32, ids >= 1."""
+    rng = np.random.RandomState(3)
+    batches = chip_smoke.scale_batches(50, 90, 16, n=2)
+    for b in batches:
+        for key, hi in (("user_id", 50), ("item_id", 90), ("neg_item_id", 90)):
+            np.testing.assert_array_equal(b[key], rng.randint(1, hi, 16, dtype=np.int32))
+            assert b[key].dtype == np.int32
+
+
+def test_scale_trainer_takes_the_duck_typed_dataset(tmp_path):
+    """The port's model and trainer need only ``num`` of the dataset (as the
+    JAX package's do in bench_scale): no per-user Python work at
+    construction, tables of exactly ``num`` rows, on the CPU when asked."""
+    pt = chip_smoke.scale_trainer(str(tmp_path), 300, 700, 16, {"use_gpu": False,
+                                                                "state": "ERROR"})
+    assert pt.device.type == "cpu"
+    assert tuple(pt.model.user_embedding.weight.shape) == (300, 16)
+    assert tuple(pt.model.item_embedding.weight.shape) == (700, 16)
+    assert os.path.isdir(str(tmp_path / "saved"))
