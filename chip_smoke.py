@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent CHECKOUT]
 
 Builds the port's hand-written kernels from the sources in this checkout,
 serves full-sort evaluation of BPR-MF (PFCN_PMF, ``filter_mode: none``,
@@ -12,8 +12,8 @@ same data through ``run_recbole``, trains the adversarial PFCN family
 their published protocol and FairGo (graph propagation, pretrain then
 adversarial finetune) through ``run_recbole``, trains with resident epochs
 and runs a hyper-parameter search, runs the parallel layer on a world of
-one NCCL rank, serves a bfloat16 catalog of 2M items and takes the train
-step at that scale, checks that every path that
+one NCCL rank, serves a catalog of 2M items stored in bfloat16 and in
+float16 and takes the train step at that scale, checks that every path that
 has a kernel went through it, and holds every kernel
 against its plain PyTorch version at the shapes the paths give it. Imports
 nothing of JAX.
@@ -21,14 +21,22 @@ nothing of JAX.
 Phases, each of which exits non-zero when it fails:
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
   2. build: every kernel of the path, built in parallel (one nvcc each);
-  3. scale: bench.py's catalog (bench_scale): a 2,097,152 x 128 bfloat16
-     item table made on the card from a seed, served through
-     certified_topk_scores (B 128) and approx_topk_scores (B 1024) with the
-     launch counts set to 0 before and read after; the kernel against its
-     plain version at B 128 and B 1024 over that table and at
-     bench_pallas_topk's float32 shape (B 1024, I 65,536, d 64), with times,
-     the split into its two CUDA kernels, the bound and the library call, a
-     call allocating no float32 copy of its table; then the port's
+     with ``--parent CHECKOUT`` (a checkout of the parent commit, for example
+     ``git archive 98b4f0a`` unpacked) that checkout's kernel is built beside
+     them and run in a process of its own; then float32 outputs are held bit
+     for bit against the parent build's at eight shapes (serving, k' 1 /
+     2048 / 4096, d 30 / 65, I 65,536, shard mode) and one that takes the
+     split merge (pinned digests, and the parent's from this run
+     where given);
+  3. scale: bench.py's catalog (bench_scale): a 2,097,152 x 128 item table
+     made on the card from a seed, in bfloat16 and then in float16 (users of
+     the same type: the tensor cores), served through certified_topk_scores
+     (B 128) and approx_topk_scores (B 1024) with the launch counts set to 0
+     before and read after; the kernel against its plain version at B 128
+     and B 1024 over each table and at bench_pallas_topk's float32 shape (B
+     1024, I 65,536, d 64), with times, the split into its two CUDA kernels,
+     the bound and the library call, a call allocating no float32 copy of
+     its table; then the port's
      Trainer._train_step at 1,048,576 users x 2,097,152 items x 128, batch
      65,536, dense Adam: 10 timed steps, every batch's loss falling, with
      examples/s, ms a step and peak memory (the first of the paths: late in
@@ -102,8 +110,11 @@ Phases, each of which exits non-zero when it fails:
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
-     (4096, over 16,384 items), on a tie-heavy integer input and at d 30,
-     with times, the bound and the library yardstick.
+     (4096, over 16,384 items), on a tie-heavy integer input and at d 30;
+     then the tensor-core path (bfloat16 and float16 users and tables) on
+     the gaussian, k' 1, k' 4096, tie-heavy and d 30 inputs, and float16
+     users over a bfloat16 table on the CUDA cores; with times, the bound
+     and the library yardstick.
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1632,7 +1643,7 @@ FAIRGO_MODELS = ("FairGo_PMF", "FairGo_GCN")
 # epoch 0 of finetune runs both the filter and the discriminator pass
 FAIRGO_DEPTH = {"pretrain_epochs": 1, "epochs": 1}
 FAIRGO_SPLIT_STEPS = 40
-PEAK_BF16_FLOPS = 989e12  # bfloat16 in the tensor cores, dense
+PEAK_BF16_FLOPS = 989e12  # bfloat16 (and float16) in the tensor cores, dense
 # bound of the bfloat16 hop's norm-relative gap from float32, ~2x the reading
 # of 1.0159e-3 (PERF.md §6, FairGo)
 FAIRGO_BF16_GAP = 2.0 ** -9
@@ -2433,7 +2444,27 @@ SCALE_BLOCKS = (128, 1024)
 SCALE_BATCH = 65536
 SCALE_STEPS = 10
 PALLAS_BENCH = (1024, 65536, 64)  # B, I, d of bench_pallas_topk
-PEAK_BF16_FLOPS = 989e12  # bf16 dense tensor cores (H100 SXM data sheet)
+# the catalog's table (and users) as bench_scale stores it, then in float16
+SCALE_DTYPES = ("bfloat16", "float16")
+# float32 outputs held bit for bit against the kernel before the
+# tensor-core path and the split merge (commit 98b4f0a): eight shapes and
+# one whose lists take the split merge; (B, I, d, k', column offset (shard
+# mode where > 0), numpy seed of U then T)
+F32_PARITY_CASES = {
+    "serving": (6144, 3630, 64, 173, 0, 1), "k1": (6144, 3630, 64, 1, 0, 2),
+    "k2048": (1024, 3630, 64, 2048, 0, 3), "k4096": (6144, 16384, 64, 4096, 0, 4),
+    "d30": (1024, 3630, 30, 173, 0, 5), "i65536": (1024, 65536, 64, 10, 0, 6),
+    "shard": (6144, 908, 64, 173, 908, 7), "d65": (2000, 3001, 65, 300, 0, 8),
+    "split": (128, 1048576, 32, 10, 0, 9),
+}
+# f32_digests of the parent build on those cases, from ``chip_smoke.py
+# --parent`` on an H100 (``--parent`` recomputes them from a parent checkout
+# in the same run)
+F32_PARENT_DIGESTS = {
+    "serving": "6a9241e219e368ac", "k1": "2dd8f5339b840889", "k2048": "47172d277f6887d3",
+    "k4096": "db6a9c4dd1bbcfcc", "d30": "3c191e4fd4fb5de3", "i65536": "e4cba1c4b84b4621",
+    "shard": "e89b4c7557a651d8", "d65": "ddf768be6ef40982", "split": "f52c8f12644ce100",
+}
 
 
 class ScaleDataset:
@@ -2484,14 +2515,14 @@ def scale_batches(n_users, n_items, batch_size, n=4, seed=3):
 def _bound_ms(U, T, k):
     """The least time of one top-k' call: each input read once and each
     output written once at the memory rate, or 2 B I d operations at the
-    peak of the inputs' type (bf16 tensor cores when both are bf16, else
-    float32 outside the tensor cores), whichever is larger."""
+    peak of the inputs' type (the tensor cores when both are bf16 or both
+    f16, else float32 outside the tensor cores), whichever is larger."""
     import torch
 
     B, d = U.shape
     I = T.shape[0]
-    bf16 = U.dtype == T.dtype == torch.bfloat16
-    ops_ms = 2.0 * B * I * d / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
+    half = U.dtype == T.dtype and T.dtype in (torch.bfloat16, torch.float16)
+    ops_ms = 2.0 * B * I * d / (PEAK_BF16_FLOPS if half else PEAK_F32_FLOPS) * 1e3
     bytes_ms = (U.element_size() * B * d + T.element_size() * I * d + 8.0 * B * k) \
         / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
@@ -2499,11 +2530,12 @@ def _bound_ms(U, T, k):
 
 def kernel_times_us(fn, calls=10):
     """Mean device time per call, in µs, of each of the two CUDA kernels of
-    a ``fused_topk`` call that ``fn`` makes: score + select apart from the
-    merge (0 where the profiler saw none)."""
+    a ``fused_topk`` call that ``fn`` makes: score + select (either path's
+    kernel) apart from the merge (either form), 0 where the profiler saw
+    none."""
     times = _device_profile(fn, calls)
     return {name: sum(ms for key, ms in times.items() if name in key) * 1e3
-            for name in ("score_select_kernel", "merge_kernel")}
+            for name in ("score_select", "merge")}
 
 
 def _no_table_copy(mod, U, T, k, label):
@@ -2520,8 +2552,8 @@ def _no_table_copy(mod, U, T, k, label):
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
     del out
-    words = mod._LAUNCH_ARGS[(U.device.index, U.shape[0], T.shape[0], U.shape[1], k,
-                              T.element_size())][0]
+    words = mod.launch_args(U.device, U.shape[0], T.shape[0], U.shape[1], k, U.dtype,
+                            T.dtype)[0]
     if rise - 8 * words >= 4 * T.numel():
         fail(f"scale[{label}]: a call raised the allocation by {rise} bytes, {8 * words} of "
              f"scratch: room for a float32 copy of the table ({4 * T.numel()} bytes)")
@@ -2602,48 +2634,110 @@ def time_scale_step(work_dir, card, steps=SCALE_STEPS):
     return row
 
 
+def f32_digests(topk, cases=None):
+    """``topk`` (a ``fused_topk_scores``) on each float32 case of
+    ``F32_PARITY_CASES`` (inputs from numpy seeds, on the card): the first
+    16 hex digits of the SHA-256 of its scores' and indices' bytes."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for name, (B, I, d, k, col0, seed) in (cases or F32_PARITY_CASES).items():
+        rng = np.random.RandomState(seed)
+        U = torch.from_numpy(rng.randn(B, d).astype(np.float32)).cuda()
+        T = torch.from_numpy(rng.randn(I, d).astype(np.float32)).cuda()
+        s, i = topk(U, T, k, col_offset=col0, mask_pad=col0 == 0)
+        out[name] = hashlib.sha256(s.cpu().numpy().tobytes()
+                                   + i.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def parent_digests(parent):
+    """``f32_digests`` of the kernel in the checkout ``parent`` (its own
+    wrapper, built from its own source), in a process of its own."""
+    code = (
+        "import importlib.util, json, sys\n"
+        f"sys.path.insert(0, {parent!r})\n"
+        "from recbole_fairrec_tpu_torch.ops import fused_topk\n"
+        f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
+        "smoke = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(smoke)\n"
+        "fused_topk.build()\n"
+        "print(json.dumps(smoke.f32_digests(fused_topk.fused_topk_scores)))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0 or not proc.stdout.strip():
+        fail(f"parity: the parent build in {parent} failed ({proc.returncode}): "
+             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def check_f32_parity(mod, card, parent=None):
+    """float32 outputs bit for bit the parent build's on every case of
+    ``F32_PARITY_CASES``: against the pinned digests, and against
+    ``parent`` (the digests a parent checkout gave in this run) where
+    given."""
+    got = f32_digests(mod.fused_topk_scores)
+    for name, digest in got.items():
+        want = [F32_PARENT_DIGESTS[name]] + ([parent[name]] if parent else [])
+        if any(w != digest for w in want):
+            fail(f"parity: float32 case {name} gave digest {digest}, the parent {want}")
+    print(f"parity: float32 outputs bit for bit the parent build's at {len(got)} shapes "
+          f"(pinned digests{' and a parent build in this run' if parent else ''}): "
+          f"{json.dumps(got)}; {card}", flush=True)
+    return got
+
+
 def scale(work_dir, card):
-    """Phase 3: catalog scale. A 2,097,152 x 128 bfloat16 item table made on
-    the card from a seed; the launch counts are set to 0, then
-    ``certified_topk_scores`` (B 128) and ``approx_topk_scores(verify=True)``
-    (B 1024) serve it through the kernel, and the counts are read. Then the
-    kernel against its plain version at B 128 and B 1024 over that table and
-    at bench_pallas_topk's float32 shape, each call allocating no float32
-    copy of its table; then the scale train step. Returns (launches, rows,
-    the step's row)."""
+    """Phase 3: catalog scale. For each of bfloat16 and float16, a 2,097,152
+    x 128 item table (and users) of that type made on the card from a seed;
+    the launch counts are set to 0, then ``certified_topk_scores`` (B 128)
+    and ``approx_topk_scores(verify=True)`` (B 1024) serve it through the
+    kernel (the tensor-core path and the split merge), and the counts are
+    read; then the kernel against its plain version at B 128 and B 1024 over
+    that table, each call allocating no float32 copy of it. Then
+    bench_pallas_topk's float32 shape, and the scale train step. Returns
+    (launches, rows, the step's row)."""
     import torch
 
     from recbole_fairrec_tpu_torch.ops.topk import approx_topk_scores, certified_topk_scores
 
     mod = _kernel_module(KERNELS[0])
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    T = torch.randn((SCALE_ITEMS, SCALE_DIM), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    users = {B: torch.randn((B, SCALE_DIM), generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for B in SCALE_BLOCKS}
-    _sync()
     launches = {k["name"]: 0 for k in KERNELS}
-    before = mod.launches
-    s_c, i_c = certified_topk_scores(users[128], T, SCALE_K)
-    s_a, i_a, certified = approx_topk_scores(users[1024], T, SCALE_K, verify=True)
-    _sync()
-    launches["fused_topk"] = mod.launches - before
-    if launches["fused_topk"] != 2:
-        fail(f"scale: {launches['fused_topk']} kernel launches for the 2 retrieval calls")
-    if not bool(certified.all()) or s_a.dtype != torch.float32 or i_a.dtype != torch.int32:
-        fail(f"scale: approx_topk_scores gave {s_a.dtype}, {i_a.dtype}, "
-             f"{int((~certified).sum())} uncertified rows")
-    for label, U, s, i in (("certified", users[128], s_c, i_c), ("approx", users[1024], s_a, i_a)):
-        s_p, i_p = mod.fused_topk_scores_reference(U, T, SCALE_K)
-        err, near = _compare_topk(f"scale {label}", U, T, SCALE_K, s, i, s_p, i_p)
-        print(f"scale: {label}_topk_scores (B {U.shape[0]}, I {SCALE_ITEMS}, d {SCALE_DIM}, "
-              f"bfloat16, k' {SCALE_K}) through the kernel: max_abs_err {err}, near-tie swaps "
-              f"{near}; {card}", flush=True)
-    del s_c, i_c, s_a, i_a, certified
-
-    rows = [scale_kernel_row(mod, users[B], T, SCALE_K, f"scale B{B}", card)
-            for B in SCALE_BLOCKS]
-    del T, users
+    rows = []
+    for name in SCALE_DTYPES:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        T = torch.randn((SCALE_ITEMS, SCALE_DIM), generator=gen, device="cuda", dtype=dtype)
+        users = {B: torch.randn((B, SCALE_DIM), generator=gen, device="cuda", dtype=dtype)
+                 for B in SCALE_BLOCKS}
+        _sync()
+        before = mod.launches
+        s_c, i_c = certified_topk_scores(users[128], T, SCALE_K)
+        s_a, i_a, certified = approx_topk_scores(users[1024], T, SCALE_K, verify=True)
+        _sync()
+        n = mod.launches - before
+        if n != 2:
+            fail(f"scale: {n} kernel launches for the 2 {name} retrieval calls")
+        launches["fused_topk"] += n
+        if not bool(certified.all()) or s_a.dtype != torch.float32 or i_a.dtype != torch.int32:
+            fail(f"scale: approx_topk_scores gave {s_a.dtype}, {i_a.dtype}, "
+                 f"{int((~certified).sum())} uncertified rows")
+        for label, U, s, i in (("certified", users[128], s_c, i_c),
+                               ("approx", users[1024], s_a, i_a)):
+            s_p, i_p, s_next = plain_topk_with_next(mod, U, T, SCALE_K)
+            err, near = _compare_topk(f"scale {label} {name}", U, T, SCALE_K, s, i, s_p, i_p,
+                                      s_next=s_next)
+            print(f"scale: {label}_topk_scores (B {U.shape[0]}, I {SCALE_ITEMS}, d {SCALE_DIM}, "
+                  f"{name}, k' {SCALE_K}) through the kernel: max_abs_err {err}, near-tie swaps "
+                  f"{near}; {card}", flush=True)
+        del s_c, i_c, s_a, i_a, certified
+        rows += [scale_kernel_row(mod, users[B], T, SCALE_K, f"scale {name} B{B}", card)
+                 for B in SCALE_BLOCKS]
+        del T, users
+        torch.cuda.empty_cache()
     B, I, d = PALLAS_BENCH
     gen32 = torch.Generator(device="cuda").manual_seed(7)
     U32 = torch.randn((B, d), generator=gen32, device="cuda")
@@ -2730,10 +2824,10 @@ def _median_ms(fn, reps=20, calls=1):
 def _library_topk(U, T, k):
     """One PyTorch call per step computing the same function: the yardstick
     (torch.topk does not promise the tie order; the port never calls this).
-    bfloat16 inputs multiply into a float32 [B, I] score matrix."""
+    bfloat16 or float16 inputs multiply into a float32 [B, I] score matrix."""
     import torch
 
-    if T.dtype == torch.bfloat16:
+    if T.dtype in (torch.bfloat16, torch.float16) and U.dtype == T.dtype:
         s = torch.mm(U, T.T, out_dtype=torch.float32)
     else:
         s = torch.matmul(U, T.T)
@@ -2756,18 +2850,31 @@ def _abs_dot(U, T, idx, block_elems=1 << 26):
     return torch.cat(parts)
 
 
-def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offset=0):
+def plain_topk_with_next(mod, U, T, k):
+    """The plain version's top k' of ``U @ T.T`` and, per row, its (k'+1)-th
+    score (-inf where the catalog has no more items): the neighbour of the
+    last slot in the plain version's whole ranking."""
+    s, i = mod.fused_topk_scores_reference(U, T, k + 1)
+    return s[:, :k].contiguous(), i[:, :k].contiguous(), s[:, k].contiguous()
+
+
+def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offset=0,
+                  s_next=None):
     """A kernel's top-k' (``s_k``, ``i_k``) against the plain version's on the
     same inputs; returns (max_abs_err, near-tie swaps). ``pad_masked=False``
     (the shard mode) allows item 0; indices are ``col_offset`` + row of T.
+    ``s_next`` (``plain_topk_with_next``) is the plain version's (k'+1)-th
+    score, the last slot's neighbour in its whole ranking.
 
     Tolerance: a float32 dot product of length d summed in any order is
     within d * 2^-24 * sum|u_j t_j| of the exact value, so two orders differ
     by at most twice that (``tol``). Scores must agree within rtol 1e-5 plus
     ``tol``; indices must be equal except where the plain version's adjacent
     scores are within max(1e-6 |s|, tol) of each other (a near tie that the
-    two summation orders may rank either way). -inf slots must carry index 0
-    in both."""
+    two summation orders may rank either way; for the last slot that
+    includes the (k'+1)-th score where ``s_next`` gives it, so an item that
+    the kernel ranks k'-th in place of the plain version's (k'+1)-th by a
+    near tie is a swap too). -inf slots must carry index 0 in both."""
     import torch
 
     B, d = U.shape
@@ -2796,6 +2903,9 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offse
     close = (gap <= gap_tol) & fin[:, 1:]
     near[:, 1:] |= close
     near[:, :-1] |= close
+    if s_next is not None:
+        near[:, -1] |= fin[:, -1] & torch.isfinite(s_next) & (
+            (s_p[:, -1] - s_next).abs() <= torch.maximum(1e-6 * s_next.abs(), tol[:, -1]))
     bad = (i_k != i_p) & ~near
     if bool(bad.any()):
         b, j = (int(x) for x in torch.nonzero(bad)[0])
@@ -2812,18 +2922,20 @@ def check_fused_topk(mod, U, T, k, label, card, reps=20, extra=None):
 
     s_k, i_k = mod.fused_topk_scores(U, T, k)
     torch.cuda.synchronize()
-    s_p, i_p = mod.fused_topk_scores_reference(U, T, k)
+    s_p, i_p, s_next = plain_topk_with_next(mod, U, T, k)
     B, d = U.shape
-    err, n_near = _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p)
+    err, n_near = _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, s_next=s_next)
     del s_k, i_k, s_p, i_p
 
     ms = _median_ms(lambda: mod.fused_topk_scores(U, T, k), reps)
     ms_back_to_back = _median_ms(lambda: mod.fused_topk_scores(U, T, k), reps, calls=10)
     plain_ms = _median_ms(lambda: mod.fused_topk_scores_reference(U, T, k), max(reps // 4, 3))
-    library_ms = _median_ms(lambda: _library_topk(U, T, k), reps)
+    # one PyTorch call computes the function only where U and T share a type
+    library_ms = _median_ms(lambda: _library_topk(U, T, k), reps) if U.dtype == T.dtype else None
     bound, bound_by = _bound_ms(U, T, k)
     row = {
         "label": label, "B": B, "I": T.shape[0], "d": d, "k": k,
+        "u_dtype": str(U.dtype).replace("torch.", ""),
         "dtype": str(T.dtype).replace("torch.", ""), "max_abs_err": err,
         "near_tie_swaps": n_near, "ms": ms, "ms_back_to_back": ms_back_to_back,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
@@ -2834,6 +2946,11 @@ def check_fused_topk(mod, U, T, k, label, card, reps=20, extra=None):
 
 
 def main():
+    parent = None
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        parent = os.path.abspath(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--parent CHECKOUT]")
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         fail(f"the package {PACKAGE}/ is not beside this script; run it from a checkout")
     import torch
@@ -2856,15 +2973,19 @@ def main():
     print(f"device: {kind}; nvidia-smi: {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}; TF32 off for matmul and cuDNN", flush=True)
 
-    # phase 2: build every kernel, one nvcc each, all started together
+    # phase 2: build every kernel, one nvcc each, all started together (and
+    # the parent checkout's kernel, where one is given, beside them)
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
         futures = {k["name"]: pool.submit(_kernel_module(k).build, True) for k in KERNELS}
+        parent_future = pool.submit(parent_digests, parent) if parent else None
         for name, fut in futures.items():
             print(f"build: {name} -> {os.path.relpath(fut.result(), REPO)}", flush=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+        parent_result = parent_future.result() if parent_future else None
+    parity = check_f32_parity(_kernel_module(KERNELS[0]), card, parent_result)
 
     # phase 3: catalog scale (the bf16 table of 2M items, the scale step),
     # first of the paths: in a process that has run the later phases, the
@@ -2930,6 +3051,19 @@ def main():
     Un = torch.randn((1024, 30), generator=gen).cuda()
     Tn = torch.randn((T.shape[0], 30), generator=gen).cuda()
     rows.append(check_fused_topk(mod, Un, Tn, k_prime, "d30", card))
+    # the tensor-core path (users and table of one half type) and a mixed
+    # half pairing on the CUDA cores, at the serving shape and its edges
+    for name in SCALE_DTYPES:
+        dtype = getattr(torch, name)
+        rows.append(check_fused_topk(mod, Ug.to(dtype), Tg.to(dtype), k_prime,
+                                     f"gaussian {name}", card))
+    rows.append(check_fused_topk(mod, Ug.half(), Tg.bfloat16(), k_prime,
+                                 "gaussian float16 users, bfloat16 table", card))
+    rows.append(check_fused_topk(mod, Ug.half(), Tg.half(), 1, "k1 float16", card))
+    rows.append(check_fused_topk(mod, Ug.bfloat16(), Tbig.bfloat16(), mod.MAX_K,
+                                 "k4096 bfloat16", card, reps=5))
+    rows.append(check_fused_topk(mod, Ui.half(), Ti.half(), k_prime, "ties float16", card))
+    rows.append(check_fused_topk(mod, Un.half(), Tn.half(), k_prime, "d30 float16", card))
 
     main_row = rows[0]
     by_path = {k["name"]: {"serve": launches[k["name"]], "train": train_launches[k["name"]],
@@ -2954,6 +3088,11 @@ def main():
             "library_ms")} for r in scale_rows},
         "scale_train_step": {key: scale_step[key] for key in (
             "step_ms", "examples_per_s", "peak_memory_bytes", "bound_ms")},
+        "paths": {r["label"]: {key: r[key] for key in (
+            "B", "I", "d", "k", "u_dtype", "dtype", "max_abs_err", "near_tie_swaps", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms") if key in r}
+            for r in rows + [shard_row] + scale_rows},
+        "f32_parent_digests": parity,
     } for k in KERNELS]
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

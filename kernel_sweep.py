@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's fused score + top-k' kernel across k' and batch size.
 
-    python3 kernel_sweep.py [--out PATH] [--profile]
+    python3 kernel_sweep.py [--out PATH] [--profile] [--scale [--modes]]
 
 Needs one CUDA card. Gaussian inputs from a seeded generator at d = 64
 against the ml-1M-scale catalogue (3,630 rows with PAD; 16,384 rows for
@@ -14,6 +14,13 @@ kernel's time grows with k' separates the selection's cost from the
 products' (k' = 1 is almost only products). ``--profile`` adds the device
 time of each CUDA kernel of one call (``torch.profiler``, mean over 10
 calls), which splits the score + select kernel from the merge.
+``--scale`` times bench.py's catalog instead (``chip_smoke.py``'s scale
+rows: a 2,097,152 x 128 table and users in bfloat16, then in float16, at B
+128 and 1024, k' 10, each checked against the plain version, with the
+split, the bound and the library call). ``--modes`` then times the
+bfloat16 table at each B again with range mode off (a list per chunk) and
+on, at k' 1 and 10, each with its split: what the selection costs beside
+the products, and what range mode saves.
 """
 
 from __future__ import annotations
@@ -48,6 +55,10 @@ def main():
     parser.add_argument("--out", help="also append the JSON lines to this file")
     parser.add_argument("--profile", action="store_true",
                         help="also report the device time of each CUDA kernel per call")
+    parser.add_argument("--scale", action="store_true",
+                        help="time bench.py's 2M-item catalog in bfloat16 and float16 instead")
+    parser.add_argument("--modes", action="store_true",
+                        help="with --scale, also range mode off and on at k' 1 and 10")
     args = parser.parse_args()
 
     import torch
@@ -64,6 +75,8 @@ def main():
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     fused_topk.build()
+    if args.scale:
+        return _scale(card, args.out, args.modes)
     gen = torch.Generator().manual_seed(0)
     d = 64
     tables = {I: torch.randn((I, d), generator=gen).cuda() for I in (3630, 16384)}
@@ -98,6 +111,64 @@ def main():
     if args.out:
         with open(args.out, "a", encoding="utf-8") as f:
             f.write("\n".join(lines) + "\n")
+
+
+def _scale(card, out, modes):
+    """chip_smoke's catalog-scale rows (``scale_kernel_row``), one table
+    type at a time; with ``modes``, the bfloat16 table's selection and
+    range-mode breakdown (``_modes``)."""
+    import torch
+
+    import chip_smoke as cs
+    from recbole_fairrec_tpu_torch.ops import fused_topk
+
+    rows = []
+    for name in cs.SCALE_DTYPES:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        T = torch.randn((cs.SCALE_ITEMS, cs.SCALE_DIM), generator=gen, device="cuda", dtype=dtype)
+        users = {}
+        for B in cs.SCALE_BLOCKS:
+            U = users[B] = torch.randn((B, cs.SCALE_DIM), generator=gen, device="cuda",
+                                       dtype=dtype)
+            rows.append(json.dumps(cs.scale_kernel_row(fused_topk, U, T, cs.SCALE_K,
+                                                       f"scale {name} B{B}", card)))
+        if modes and dtype == torch.bfloat16:
+            rows += _modes(fused_topk, users, T, card)
+        del T, users
+        torch.cuda.empty_cache()
+    if out:
+        with open(out, "a", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+
+
+def _modes(fused_topk, users, T, card):
+    """Each B at k' 1 and 10 with range mode off (RANGE_MAX_K 0: a list per
+    chunk, the split merge) and on (the plan's default): the median of one
+    call and the split into the two CUDA kernels. The module's plan is put
+    back afterwards."""
+    import chip_smoke as cs
+
+    rows = []
+    saved = fused_topk.RANGE_MAX_K
+    try:
+        for B, U in users.items():
+            for mode, max_k in (("chunk", 0), ("range", saved)):
+                for k in (1, cs.SCALE_K):
+                    fused_topk.RANGE_MAX_K = max_k
+                    fused_topk._LAUNCH_ARGS.clear()
+                    call = lambda: fused_topk.fused_topk_scores(U, T, k)  # noqa: E731
+                    args = fused_topk.launch_args(U.device, B, T.shape[0], T.shape[1], k,
+                                                  U.dtype, T.dtype)
+                    row = {"label": f"modes {mode} B{B} k{k}", "B": B, "k": k, "mode": mode,
+                           "launch_shape": args[1], "ms": cs._median_ms(call, 5),
+                           "kernels_us": cs.kernel_times_us(call, calls=3), "card": card}
+                    rows.append(json.dumps(row))
+                    print(f"kernel: fused_topk {rows[-1]}", flush=True)
+    finally:
+        fused_topk.RANGE_MAX_K = saved
+        fused_topk._LAUNCH_ARGS.clear()
+    return rows
 
 
 if __name__ == "__main__":

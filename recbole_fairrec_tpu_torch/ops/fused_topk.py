@@ -2,15 +2,18 @@
 (``csrc/fused_topk.cu``) and its plain PyTorch version.
 
 Counterpart of ``recbole_fairrec_tpu/ops/pallas/fused_topk.py``. For
-``user_emb [B, d]`` and ``item_table [I, d]`` (each float32 or bfloat16) it
-returns the k' best items of every row of ``user_emb @ item_table.T``,
-summed in float32, as ``(scores [B, k'] float32, idx [B, k'] int32)``,
-ordered by (score descending, item index ascending), with item 0 ([PAD])
-never selected and a slot without an item holding (−inf, 0). A bfloat16
-table is read as it is stored (the wrapper makes no float32 copy of it);
-the kernel widens each value as it enters the products, which are then
-exact in float32, as under the JAX call's ``preferred_element_type``.
-Other dtypes (float16 among them) raise ``TypeError``.
+``user_emb [B, d]`` and ``item_table [I, d]`` (each float32, bfloat16 or
+float16, in any pairing) it returns the k' best items of every row of
+``user_emb @ item_table.T``, summed in float32, as ``(scores [B, k']
+float32, idx [B, k'] int32)``, ordered by (score descending, item index
+ascending), with item 0 ([PAD]) never selected and a slot without an item
+holding (−inf, 0). A half-precision table is read as it is stored (the
+wrapper makes no float32 copy of it). The products of half values are exact
+in float32, as under the JAX call's ``preferred_element_type``: users and
+table of one half type go through the tensor cores (``mma.sync``), every
+other pairing through float32 FMA on the widened values. float64 and
+integer tensors raise ``TypeError`` naming the dtype (the JAX package,
+without x64, never holds a float64 array).
 
 Shard mode (the local stage of ``parallel.eval.distributed_topk_scores``):
 ``col_offset`` is added to the index of every selected item (the table is
@@ -49,13 +52,31 @@ MAX_K = 4096
 BM, BN, BK, STAGES, KEY_PAD, MERGE_THREADS = 64, 256, 16, 3, 8, 256
 MAX_CHUNK = 512  # kMaxChunk: a chunk's keys fit 16 registers per lane
 MAX_SPLITS = 65535  # kMaxSplits: the score grid's y extent (chunks)
-# t_stride: elements of a T ring row by element size (f32 80 B, bf16 48 B)
+# t_stride: elements of a CUDA-core T ring row by element size (f32 80 B,
+# half 48 B)
 T_STRIDE = {4: BK + 4, 2: BK + 8}
-# the dtypes the kernel reads, for users and table alike, in any pairing
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the tensor-core path: depth per T tile (kBKM) and elements of a ring row
+# (kTSM, 80 B)
+BK_MMA = 32
+T_STRIDE_MMA = BK_MMA + 8
+# the dtypes the kernel reads, for users and table alike, in any pairing,
+# with their codes in the C interface
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SLACK = 32  # kSlack: keys a chunk's list may hold beyond k' (for k' > 1)
 MIN_BLOCKS_PER_SM = 2
 MERGE_WARP_MAX_K = 512  # the merge sorts up to this many winners with one warp
+CAND_CAP = 2048  # kCandCap: candidates a user may bring to the split merge's sort
+# the split merge: at least this many blocks per SM; with one list per
+# chunk it also takes lists that fit shared memory where there are at least
+# SPLIT_MIN_LISTS of them and the team grid would leave SMs idle
+SPLIT_BLOCKS_PER_SM = 4
+SPLIT_MIN_LISTS = MERGE_THREADS
+# range mode (the tensor-core kernel, k' <= RANGE_MAX_K): a score block walks
+# several chunks, keeping each user's top k' in registers; the grid is one
+# wave of one block per SM (the longer a range, the fewer keys beat its
+# running k'-th best, and the less its first chunk costs per chunk)
+RANGE_MAX_K = 32  # kRangeMaxK
 # kMergeStaticSmem: the merge kernel's static shared memory, at most; CUDA
 # counts it against the opt-in limit beside the dynamic bytes
 MERGE_STATIC_SMEM = 256
@@ -106,14 +127,14 @@ def _lib():
         lib.fused_topk_max_smem.restype = ctypes.c_int
         lib.fused_topk_max_smem.argtypes = []
         lib.fused_topk_smem_bytes.restype = ctypes.c_longlong
-        lib.fused_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.fused_topk_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.fused_topk_launch.restype = ctypes.c_int
         lib.fused_topk_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
@@ -138,13 +159,18 @@ def _pow2_at_least(n):
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def smem_bytes(d, chunk, esize=4):
+def smem_bytes(d, chunk, esize=4, mma=False):
     """Dynamic shared memory of one score + select block (``score_smem_bytes``
-    in the CUDA source): f32 U rows, the T ring in the table's element type
-    (``esize`` bytes), the [BM, chunk] key block."""
+    in the CUDA source). CUDA cores: f32 U rows, the T ring in the table's
+    element type (``esize`` bytes), the [BM, chunk] key block. Tensor cores
+    (``mma``, U and T of one half type): half U rows of ``d`` rounded up to
+    32 plus 8, the ring of 32-deep half tiles, the key block."""
+    keys = 4 * BM * (chunk + KEY_PAD)
+    if mma:
+        dpad = _ceil_div(d, BK_MMA) * BK_MMA
+        return 2 * BM * (dpad + 8) + 2 * STAGES * BN * T_STRIDE_MMA + keys
     dpad = _ceil_div(d, BK) * BK
-    return (4 * BM * (dpad + 4) + esize * STAGES * BN * T_STRIDE[esize]
-            + 4 * BM * (chunk + KEY_PAD))
+    return 4 * BM * (dpad + 4) + esize * STAGES * BN * T_STRIDE[esize] + keys
 
 
 class MergePlan(NamedTuple):
@@ -152,13 +178,17 @@ class MergePlan(NamedTuple):
     ``kp`` slots (min(k', I) rounded up to a power of two, at least one per
     thread of the team), ``team`` threads per user (a warp, or the whole
     block where that power of two is above MERGE_WARP_MAX_K), the lists'
-    keys copied into shared memory when ``keys_in_smem``, ``smem`` bytes."""
+    keys copied into shared memory when ``keys_in_smem``, ``smem`` bytes.
+    ``parts`` > 0 selects the split merge (``merge_plan`` says where): that
+    many blocks of MERGE_THREADS per user, each over a slice of its lists;
+    0 the per-user team."""
 
     n: int
     kp: int
     team: int
     keys_in_smem: bool
     smem: int
+    parts: int
 
 
 def list_len(top_k, chunk):
@@ -166,27 +196,60 @@ def list_len(top_k, chunk):
     return min(top_k + SLACK if top_k > 1 else top_k, chunk)
 
 
-def merge_plan(n_items, top_k, plan, smem_limit):
+def chunks_per_block(n_users, top_k, plan, n_sm, mma):
+    """Chunks a score block walks: 1 (a list per chunk) unless the products
+    run on the tensor cores (``mma``) and k' <= RANGE_MAX_K; then enough
+    that the grid is one wave of ``n_sm`` blocks (one range per user block
+    where the user blocks alone fill it); range mode where that is 2 chunks
+    or more."""
+    if not mma or top_k > RANGE_MAX_K:
+        return 1
+    ranges = max(1, n_sm // _ceil_div(n_users, BM))
+    cpb = _ceil_div(plan.splits, ranges)
+    return cpb if cpb >= 2 else 1
+
+
+def merge_plan(n_users, n_items, top_k, plan, smem_limit, n_sm, cpb=1):
     """The merge's dynamic bytes stay within ``smem_limit`` less its static
-    bytes; the lists' keys go to shared memory only where they fit too."""
+    bytes. A user has one list per chunk (``cpb`` 1) or per range of ``cpb``
+    chunks (k' entries each). Where the lists' keys fit beside the sort's
+    words, one team per user copies them into shared memory. The split merge
+    reads each list at most once, in SPLIT_BLOCKS_PER_SM blocks per SM of
+    ``n_sm`` at least (a part of the lists each), where min(k', I) fits
+    CAND_CAP and a list's bound is a threshold (not 0: the list is shorter
+    than its chunk, or a range's), and either the keys do not fit or the
+    team grid would leave SMs idle (over SPLIT_MIN_LISTS lists or more where
+    there is a list per chunk). Else one team per user reads them in
+    place."""
     dynamic_limit = smem_limit - MERGE_STATIC_SMEM
-    lmax = list_len(top_k, plan.chunk)
-    last = n_items - (plan.splits - 1) * plan.chunk
-    n = (plan.splits - 1) * lmax + min(lmax, last)
+    if cpb > 1:
+        lists, lmax = _ceil_div(plan.splits, cpb), top_k
+        n = lists * lmax
+    else:
+        lists, lmax = plan.splits, list_len(top_k, plan.chunk)
+        last = n_items - (plan.splits - 1) * plan.chunk
+        n = (plan.splits - 1) * lmax + min(lmax, last)
     kp = _pow2_at_least(min(top_k, n_items))
     team = 32 if kp <= MERGE_WARP_MAX_K else MERGE_THREADS
     kp = max(kp, team)
     words = 8 * (kp + kp // 16)  # padded: word i at i + i // 16
     teams = MERGE_THREADS // team
     with_keys = teams * (words + 4 * _ceil_div(n, 2) * 2)
-    if with_keys <= dynamic_limit:
-        return MergePlan(n, kp, team, True, with_keys)
+    fits = with_keys <= dynamic_limit
+    kp_split = max(kp, MERGE_THREADS)
+    idle = _ceil_div(n_users, teams) < n_sm and (cpb > 1 or lists >= SPLIT_MIN_LISTS)
+    if kp_split <= CAND_CAP and (cpb > 1 or lmax < plan.chunk) and (not fits or idle):
+        parts = max(1, min(_ceil_div(SPLIT_BLOCKS_PER_SM * n_sm, n_users), lists))
+        smem = 8 * max(kp_split + kp_split // 16, CAND_CAP)
+        return MergePlan(n, kp_split, MERGE_THREADS, False, smem, parts)
+    if fits:
+        return MergePlan(n, kp, team, True, with_keys, 0)
     smem = teams * words
     if smem > dynamic_limit:
         raise ValueError(f"fused_topk: k'={top_k} needs {smem} bytes of shared memory per "
                          f"merge block, more than the card's {smem_limit} less "
                          f"{MERGE_STATIC_SMEM} static")
-    return MergePlan(n, kp, team, False, smem)
+    return MergePlan(n, kp, team, False, smem, 0)
 
 
 def scratch_entries(n_users, top_k, plan):
@@ -194,16 +257,34 @@ def scratch_entries(n_users, top_k, plan):
     return n_users * plan.splits * list_len(top_k, plan.chunk)
 
 
-def launch_plan(n_users, n_items, d, smem_limit, n_sm, esize=4):
+def scratch_words(n_users, top_k, plan, merge, cpb=1):
+    """The scratch tensor's 8-byte words: the lists (per chunk, or k' per
+    range of ``cpb`` chunks), one 4-byte lower bound per list, and for the
+    split merge one 4-byte largest key per list, CAND_CAP candidate entries
+    and a pair of 4-byte counters per user."""
+    lists = _ceil_div(plan.splits, cpb)
+    if cpb > 1:
+        words = n_users * lists * top_k
+    else:
+        words = scratch_entries(n_users, top_k, plan)
+    per_list = _ceil_div(n_users * lists, 2)
+    words += per_list
+    if merge.parts:
+        words += per_list + n_users * (CAND_CAP + 1)
+    return words
+
+
+def launch_plan(n_users, n_items, d, smem_limit, n_sm, esize=4, mma=False):
     """The chunk is as large as ``smem_limit`` allows (a multiple of BN), cut
     further until the grid holds MIN_BLOCKS_PER_SM blocks per SM. ``esize``
-    is the table's element size (4 float32, 2 bfloat16). A catalog that
-    needs more than MAX_SPLITS chunks raises."""
+    is the table's element size (4 float32, 2 bfloat16 or float16), ``mma``
+    the tensor-core path. A catalog that needs more than MAX_SPLITS chunks
+    raises."""
     chunk_max = min(MAX_CHUNK,
-                    (smem_limit - smem_bytes(d, 0, esize)) // (4 * BM) // BN * BN)
+                    (smem_limit - smem_bytes(d, 0, esize, mma)) // (4 * BM) // BN * BN)
     if chunk_max < BN:
         raise ValueError(
-            f"fused_topk: d={d} needs {smem_bytes(d, BN, esize)} bytes of shared memory "
+            f"fused_topk: d={d} needs {smem_bytes(d, BN, esize, mma)} bytes of shared memory "
             f"per block, more than the card's {smem_limit}"
         )
     if _ceil_div(n_items, chunk_max) > MAX_SPLITS:
@@ -217,7 +298,13 @@ def launch_plan(n_users, n_items, d, smem_limit, n_sm, esize=4):
     chunk = min(chunk_max, _ceil_div(_ceil_div(n_items, splits), BN) * BN)
     while user_blocks * _ceil_div(n_items, chunk) < target and chunk > BN:
         chunk -= BN
-    return Plan(BM, chunk, _ceil_div(n_items, chunk), smem_bytes(d, chunk, esize))
+    return Plan(BM, chunk, _ceil_div(n_items, chunk), smem_bytes(d, chunk, esize, mma))
+
+
+def uses_tensor_cores(u_dtype, t_dtype):
+    """Users and table of one half type: the products run on the tensor
+    cores; every other pairing on the CUDA cores."""
+    return u_dtype == t_dtype and u_dtype in (torch.bfloat16, torch.float16)
 
 
 def fused_topk_scores_reference(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
@@ -230,40 +317,45 @@ def fused_topk_scores_reference(user_emb, item_table, top_k, col_offset=0, mask_
     return scores, idx
 
 
-def _launch_args(device, B, I, d, top_k, esize):
-    """For these shapes and the table's element size on this device, made
-    once: the scratch's 8-byte words, the launch's shape arguments before
-    ``vec`` and its two shared memory sizes after it (the wrapper's host
-    time is part of every call)."""
-    key = (device.index, B, I, d, top_k, esize)
+def launch_args(device, B, I, d, top_k, u_dtype, t_dtype):
+    """For these shapes and types on this device, made once: the scratch's
+    8-byte words, the launch's shape arguments before ``vec`` and its two
+    shared memory sizes after it (the wrapper's host time is part of every
+    call)."""
+    key = (device.index, B, I, d, top_k, u_dtype, t_dtype)
     args = _LAUNCH_ARGS.get(key)
     if args is None:
         smem_limit = _lib().fused_topk_max_smem()
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = launch_plan(B, I, d, smem_limit, n_sm, esize)
-        merge = merge_plan(I, top_k, plan, smem_limit)
-        # the lists, then one 4-byte lower bound per (user, chunk)
-        words = scratch_entries(B, top_k, plan) + _ceil_div(B * plan.splits, 2)
-        shape = (B, I, d, top_k, plan.chunk, plan.splits, merge.n, merge.kp, merge.team,
-                 int(merge.keys_in_smem))
-        args = _LAUNCH_ARGS[key] = (words, shape, (plan.smem, merge.smem))
+        esize = torch.empty((), dtype=t_dtype).element_size()
+        mma = uses_tensor_cores(u_dtype, t_dtype)
+        plan = launch_plan(B, I, d, smem_limit, n_sm, esize, mma)
+        cpb = chunks_per_block(B, top_k, plan, n_sm, mma)
+        merge = merge_plan(B, I, top_k, plan, smem_limit, n_sm, cpb)
+        shape = (B, I, d, top_k, plan.chunk, plan.splits, cpb, merge.n, merge.kp, merge.team,
+                 int(merge.keys_in_smem), merge.parts)
+        args = _LAUNCH_ARGS[key] = (scratch_words(B, top_k, plan, merge, cpb), shape,
+                                    (plan.smem, merge.smem))
     return args
 
 
 def _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad):
     (B, d), device = user_emb.shape, user_emb.device
-    esize = item_table.element_size()
-    words, shape, smem = _launch_args(device, B, item_table.shape[0], d, top_k, esize)
+    u_dtype, t_dtype = user_emb.dtype, item_table.dtype
+    words, shape, smem = launch_args(device, B, item_table.shape[0], d, top_k, u_dtype, t_dtype)
     scratch = torch.empty(words, dtype=torch.int64, device=device)
     u, t = user_emb.data_ptr(), item_table.data_ptr()
-    u_bf16 = user_emb.dtype == torch.bfloat16
-    # 16-byte copies of T (and of f32 users; bf16 users are read by plain loads)
-    vec = int(d % (16 // esize) == 0 and t % 16 == 0 and (u_bf16 or u % 16 == 0))
+    # 16-byte copies of T, and of U where it is read by cp.async: f32 users,
+    # and users of the tensor-core path (half users of the CUDA-core path are
+    # read by plain loads)
+    u_plain = u_dtype != torch.float32 and not uses_tensor_cores(u_dtype, t_dtype)
+    vec = int(d % (16 // item_table.element_size()) == 0 and t % 16 == 0
+              and (u_plain or u % 16 == 0))
     # the raw handle of the current stream, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     return _lib().fused_topk_launch(
         u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem,
-        int(col_offset), int(mask_pad), int(u_bf16), int(esize == 2), stream,
+        int(col_offset), int(mask_pad), DTYPE_CODES[u_dtype], DTYPE_CODES[t_dtype], stream,
     )
 
 
@@ -279,8 +371,8 @@ def fused_topk_scores(user_emb, item_table, top_k, col_offset=0, mask_pad=True):
         raise ValueError(f"fused_topk: k'={top_k} is outside [1, {MAX_K}]")
     for dtype in (user_emb.dtype, item_table.dtype):
         if dtype not in KERNEL_DTYPES:
-            raise TypeError(f"fused_topk: the kernel takes float32 or bfloat16 tensors, "
-                            f"not {dtype}")
+            raise TypeError(f"fused_topk: the kernel takes float32, bfloat16 or float16 "
+                            f"tensors, not {dtype}")
     device, t_device = user_emb.device, item_table.device
     if device.type == "cpu" and t_device.type == "cpu":
         return fused_topk_scores_reference(user_emb, item_table, top_k, col_offset, mask_pad)

@@ -17,9 +17,10 @@ the port's selection is exact: the hand-written kernel
 (``ops.fused_topk.fused_topk_scores``) on a CUDA tensor, the plain
 ``streaming_topk_scores`` on the CPU, and every row comes back certified.
 
-Tables and users may be float32 or bfloat16 (the JAX package's serving
-storage at catalog scale is a bfloat16 table): scores are float32 sums of
-the products of the widened values, on the card and on the CPU alike.
+Tables and users may be float32, bfloat16 or float16, in any pairing (the
+JAX package's serving storage at catalog scale is a bfloat16 table): scores
+are float32 sums of the exact products of the widened values, on the card
+and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False
     """Top-k of ``user_emb @ item_table.T`` without materializing all scores.
 
     Args:
-        user_emb: [B, d] float32 or bfloat16.
-        item_table: [I, d] float32 or bfloat16 (each tile widened to float32).
+        user_emb: [B, d] float32, bfloat16 or float16.
+        item_table: [I, d] float32, bfloat16 or float16 (each tile widened
+            to float32).
         top_k: k.
         tile: item-tile width.
         mask_pad: exclude the [PAD] item (row 0).
@@ -66,8 +68,9 @@ def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False
 def _exact_topk(user_emb, item_table, top_k, tile=4096):
     """Top-k of ``user_emb @ item_table.T`` with PAD (item 0) never
     selected: the fused kernel on a CUDA tensor (it raises outside its
-    limits; there is no plain path on the card; a bfloat16 table is read as
-    it is, with no float32 copy), the plain streaming top-k on the CPU."""
+    limits; there is no plain path on the card; a bfloat16 or float16 table
+    is read as it is, with no float32 copy), the plain streaming top-k on
+    the CPU."""
     if user_emb.device.type == "cuda":
         from .fused_topk import fused_topk_scores
 

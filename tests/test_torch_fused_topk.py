@@ -138,8 +138,9 @@ def test_launch_plan_fits_shared_memory(d, k):
     plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS)
     assert plan.bm == fused_topk.BM and plan.smem == fused_topk.smem_bytes(d, plan.chunk)
     assert plan.smem <= H100_SMEM
-    merge = fused_topk.merge_plan(I, k, plan, H100_SMEM)
+    merge = fused_topk.merge_plan(B, I, k, plan, H100_SMEM, H100_SMS)
     assert merge.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
+    assert merge.parts == 0  # the lists fit shared memory: one team per user
     assert merge.team in (32, fused_topk.MERGE_THREADS)
     assert merge.kp >= max(min(k, I), merge.team) and merge.kp % merge.team == 0
     last = I - (plan.splits - 1) * plan.chunk  # items of the last chunk
@@ -165,9 +166,9 @@ def test_launch_plan_at_the_serving_shape():
     assert 8 * fused_topk.scratch_entries(6144, 2048, plan) == 201_326_592
     big = fused_topk.launch_plan(6144, 16384, 64, H100_SMEM, H100_SMS)
     assert 8 * fused_topk.scratch_entries(6144, 4096, big) == 805_306_368
-    merge = fused_topk.merge_plan(3630, 173, plan, H100_SMEM)
+    merge = fused_topk.merge_plan(6144, 3630, 173, plan, H100_SMEM, H100_SMS)
     # 7 lists of 205 and the last chunk's 46 items; a warp per user, 8 per block
-    assert merge == (7 * 205 + 46, 256, 32, True, 8 * (8 * (256 + 16) + 4 * 1482))
+    assert merge == (7 * 205 + 46, 256, 32, True, 8 * (8 * (256 + 16) + 4 * 1482), 0)
     assert fused_topk.list_len(1, 512) == 1  # an arg-max list needs no slack
 
 
@@ -177,12 +178,15 @@ def test_merge_plan_leaves_room_for_static_shared_memory():
     would overrun, so the merge reads the keys in place."""
     plan = fused_topk.launch_plan(6144, 6176, 64, H100_SMEM, H100_SMS)
     assert plan == (64, 512, 13, 211968)
-    merge = fused_topk.merge_plan(6176, 480, plan, H100_SMEM)
-    assert merge == (6176, 512, 32, False, 8 * 8 * (512 + 32))
-    with_keys = fused_topk.merge_plan(6176, 480, plan, H100_SMEM + fused_topk.MERGE_STATIC_SMEM)
+    merge = fused_topk.merge_plan(6144, 6176, 480, plan, H100_SMEM, H100_SMS)
+    # every list is a whole chunk (480 + 32 slots), so its bound is 0 and the
+    # split merge would take every entry: one warp per user reads them in place
+    assert merge == (6176, 512, 32, False, 8 * 8 * (512 + 32), 0)
+    with_keys = fused_topk.merge_plan(6144, 6176, 480, plan,
+                                      H100_SMEM + fused_topk.MERGE_STATIC_SMEM, H100_SMS)
     assert with_keys.keys_in_smem and with_keys.smem == H100_SMEM
     for k in range(440, 520):  # every plan near the limit leaves the static bytes free
-        m = fused_topk.merge_plan(6176, k, plan, H100_SMEM)
+        m = fused_topk.merge_plan(6144, 6176, k, plan, H100_SMEM, H100_SMS)
         assert m.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
 
 

@@ -80,6 +80,19 @@ def test_fused_topk_zero_scores_tie_by_index(card, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", list(chip_smoke.F32_PARITY_CASES))
+def test_fused_topk_f32_equals_the_parent_build(card, case):
+    """float32 outputs are bit for bit those of the kernel before the
+    tensor-core path and the split merge (commit 98b4f0a, whose digests
+    ``chip_smoke.py --parent`` recomputes beside this tree's): eight shapes
+    (serving, k' 1 / 2048 / 4096, d 30 / 65, I 65,536, shard mode) and one
+    whose lists take the split merge (I 1,048,576)."""
+    got = chip_smoke.f32_digests(fused_topk.fused_topk_scores, {
+        case: chip_smoke.F32_PARITY_CASES[case]})
+    assert got[case] == chip_smoke.F32_PARENT_DIGESTS[case]
+
+
+@pytest.mark.gpu
 def test_fused_topk_rejects_non_float32_on_card(card):
     U = torch.zeros(4, 8, device=card, dtype=torch.float64)
     T = torch.zeros(10, 8, device=card, dtype=torch.float64)
@@ -90,20 +103,34 @@ def test_fused_topk_rejects_non_float32_on_card(card):
 @pytest.mark.gpu
 @pytest.mark.parametrize("u_dtype,t_dtype", [(torch.bfloat16, torch.bfloat16),
                                              (torch.float32, torch.bfloat16),
-                                             (torch.bfloat16, torch.float32)],
-                         ids=["bf16", "f32-users-bf16-table", "bf16-users-f32-table"])
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float16, torch.float16),
+                                             (torch.float32, torch.float16),
+                                             (torch.float16, torch.float32),
+                                             (torch.bfloat16, torch.float16),
+                                             (torch.float16, torch.bfloat16)],
+                         ids=["bf16", "f32-users-bf16-table", "bf16-users-f32-table", "f16",
+                              "f32-users-f16-table", "f16-users-f32-table",
+                              "bf16-users-f16-table", "f16-users-bf16-table"])
 @pytest.mark.parametrize("B,I,d,k", [
     (6144, 3630, 64, 173),   # the serving shape
     (64, 4097, 128, 10),     # d 128, a PAD row past a power of two
-    (77, 1001, 30, 50),      # d not a multiple of 8: plain loads of the bf16 table
+    (77, 1001, 30, 50),      # d not a multiple of 8: plain loads of the half table
     (2000, 3001, 65, 300),   # d 65 and a short last chunk
     (300, 5000, 32, 4096),   # the largest k'
-    (64, 50000, 8, 4096),    # lists too long for shared memory
+    (64, 50000, 8, 4096),    # lists too long for shared memory, whole chunks: in place
+    (6144, 3630, 64, 1),     # k' = 1: the arg-max lists
+    (1024, 3630, 64, 2048),  # every chunk's list is the whole chunk
+    (128, 1048576, 32, 10),  # lists past shared memory: the split merge
+    (128, 1048576, 16, 1),   # the split merge over arg-max lists
 ])
 def test_fused_topk_bf16_matches_plain(card, B, I, d, k, u_dtype, t_dtype):
-    """bfloat16 tables (and users) of small integers: every product and sum
-    is exact in float32, so the kernel agrees with the plain version (which
-    widens the values) slot for slot, ties included."""
+    """Half-precision tables (and users) of small integers, bfloat16 and
+    float16 in every pairing with each other and with float32: every
+    product and sum is exact in float32, on the tensor cores (users and
+    table of one half type) as on the CUDA cores, so the kernel agrees with
+    the plain version (which widens the values) slot for slot, ties
+    included."""
     gen = torch.Generator().manual_seed(2)
     U = torch.randint(-2, 3, (B, d), generator=gen).to(u_dtype).to(card)
     T = torch.randint(-2, 3, (I, d), generator=gen).to(t_dtype).to(card)
@@ -125,14 +152,55 @@ def test_fused_topk_bf16_tie_heavy(card, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [7, 173])
+@pytest.mark.parametrize("I", [3630, 1048576])
+def test_fused_topk_f16_tie_heavy(card, I, k):
+    """A float16 table of values in {-1, 0, 1} with half its rows zero,
+    users in {-1, 0, 1}: most scores tie, and equal scores must come out by
+    item index, through the tensor cores and either merge (I 1,048,576: the
+    split merge)."""
+    gen = torch.Generator().manual_seed(5)
+    U = torch.randint(-1, 2, (700 if I < 10**5 else 128, 64), generator=gen).to(torch.float16)
+    T = torch.randint(-1, 2, (I, 64), generator=gen).to(torch.float16)
+    T[1::2] = 0
+    U, T = U.to(card), T.to(card)
+    _check_slot_for_slot(U, T, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fused_topk_constant_scores_at_catalog_scale(card, dtype, k):
+    """Every score equal over 1,048,576 items: each chunk's list holds its
+    first k' items and every bound is that one key, so the split merge
+    gets more candidates than it sorts (2,048 chunks x k') except at k' 1,
+    and ranks them by the search over the lists in place: the items 1..k'
+    in order (PAD masked), as the plain version gives."""
+    U = torch.ones((64, 16), dtype=dtype, device=card)
+    T = torch.ones((1048576, 16), dtype=dtype, device=card)
+    _check_slot_for_slot(U, T, k)
+    s, i = fused_topk.fused_topk_scores(U, T, k)
+    assert torch.equal(i[0].cpu(), torch.arange(1, k + 1, dtype=torch.int32))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,I,d,dtype", [(1024, 65536, 64, torch.float32),
-                                         (128, 262144, 128, torch.bfloat16)],
-                         ids=["pallas-bench-f32", "bf16-table"])
+                                         (128, 262144, 128, torch.bfloat16),
+                                         (128, 262144, 128, torch.float16),
+                                         (1024, 3630, 64, torch.float16),
+                                         (1024, 524288, 64, torch.float16),
+                                         (128, 1048576, 64, torch.bfloat16)],
+                         ids=["pallas-bench-f32", "bf16-table", "f16-table", "f16-serving",
+                              "f16-range", "bf16-range-split"])
 def test_fused_topk_gaussian_within_the_near_tie_rule(card, B, I, d, dtype):
     """Gaussian inputs at bench_pallas_topk's float32 shape (B 1024, I
-    65,536, d 64, k' 10) and over a bfloat16 table of 262,144 x 128: the
-    kernel against the plain version under chip_smoke's near-tie rule, and a
-    call allocates its outputs and scratch but no float32 copy of the table
+    65,536, d 64, k' 10), over bfloat16 and float16 tables of 262,144 x 128
+    (the tensor cores and the split merge), at the serving shape in float16,
+    and in range mode (a score block over several chunks: B 1024 over
+    524,288 items, B 128 over 1,048,576 with the split merge): the kernel against the plain version under chip_smoke's
+    near-tie rule (the tensor cores sum the d exact products in another
+    order and rounding than the plain version's float32 matmul), and a call
+    allocates its outputs and scratch but no float32 copy of the table
     (``chip_smoke._no_table_copy``)."""
     gen = torch.Generator(device=card).manual_seed(4)
     U = torch.randn((B, d), generator=gen, device=card, dtype=dtype)
@@ -141,8 +209,8 @@ def test_fused_topk_gaussian_within_the_near_tie_rule(card, B, I, d, dtype):
     s, i = fused_topk.fused_topk_scores(U, T, 10)
     torch.cuda.synchronize()
     assert fused_topk.launches == before + 1
-    s_p, i_p = fused_topk.fused_topk_scores_reference(U, T, 10)
-    chip_smoke._compare_topk("gpu test", U, T, 10, s, i, s_p, i_p)
+    s_p, i_p, s_next = chip_smoke.plain_topk_with_next(fused_topk, U, T, 10)
+    chip_smoke._compare_topk("gpu test", U, T, 10, s, i, s_p, i_p, s_next=s_next)
     rise, scratch = chip_smoke._no_table_copy(fused_topk, U, T, 10, "gpu test")
     assert rise - scratch < 4 * T.numel()
 
@@ -150,8 +218,16 @@ def test_fused_topk_gaussian_within_the_near_tie_rule(card, B, I, d, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_fused_topk_refuses_other_dtypes_by_name_on_card(card, dtype):
+    """float64 users raise a TypeError naming the dtype; float16 users (over
+    a bfloat16 table) go through the kernel, counted, slot for slot with the
+    plain version."""
     U = torch.zeros(4, 8, device=card, dtype=dtype)
     T = torch.zeros(10, 8, device=card, dtype=torch.bfloat16)
+    if dtype == torch.float16:
+        U[:, ::2] = 1
+        T[::3] = 1
+        _check_slot_for_slot(U, T, 3)
+        return
     with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
         fused_topk.fused_topk_scores(U, T, 3)
 

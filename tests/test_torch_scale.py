@@ -1,12 +1,13 @@
-"""Catalog scale on the CPU against the JAX package: bfloat16 item tables
-through the fused top-k and the retrieval entry points, the kernel's launch
-plan at bench.py's 2M-item catalog, and the scale train step at a cut size.
+"""Catalog scale on the CPU against the JAX package: bfloat16 and float16
+item tables (and users, in any pairing with float32) through the fused
+top-k and the retrieval entry points, the kernel's launch plan at bench.py's
+2M-item catalog, and the scale train step at a cut size.
 
 The kernel itself runs only on the card (``test_torch_kernels_gpu.py``,
 ``chip_smoke.py``'s ``scale`` phase); here the wrapper takes its plain
 version, as it does for every CPU tensor. Inputs come from numpy seeds and
-go to both packages; bfloat16 values are made by rounding float32 draws, so
-both packages hold the same numbers.
+go to both packages; bfloat16 and float16 values are made by rounding
+float32 draws, so both packages hold the same numbers.
 """
 
 import os
@@ -34,12 +35,13 @@ H100_SMS = 132
 K = 10
 
 
-def _bf16_inputs(seed, B, I, d):
-    """float32 draws rounded to bfloat16: the port's tensors and the same
-    values as float32 numpy arrays (exact in bfloat16) for JAX."""
+def _bf16_inputs(seed, B, I, d, dtype=torch.bfloat16):
+    """float32 draws rounded to ``dtype`` (bfloat16 or float16): the port's
+    tensors and the same values as float32 numpy arrays (exact in
+    ``dtype``) for JAX."""
     rng = np.random.RandomState(seed)
-    U = torch.from_numpy(rng.randn(B, d).astype(np.float32)).to(torch.bfloat16)
-    T = torch.from_numpy(rng.randn(I, d).astype(np.float32)).to(torch.bfloat16)
+    U = torch.from_numpy(rng.randn(B, d).astype(np.float32)).to(dtype)
+    T = torch.from_numpy(rng.randn(I, d).astype(np.float32)).to(dtype)
     return U, T, U.float().numpy(), T.float().numpy()
 
 
@@ -47,7 +49,8 @@ def _assert_topk_close(s, i, ref_s, ref_i, U, T):
     """Scores within the float32 summation-order bound, ids equal but where
     two of the reference's adjacent scores lie within that bound.
 
-    Every product of two bfloat16 values is exact in float32, so the two
+    Every product of two bfloat16 values is exact in float32 (so is every
+    product of two float16 values, or of a float16 and a bfloat16), so the two
     packages differ only by the order of the d additions: each sum is
     within d * 2^-24 * sum_j |u_j t_j| of the exact value, two orders within
     twice that (``tol``). A near tie is a pair of adjacent reference scores
@@ -107,41 +110,155 @@ def test_bf16_table_retrieval_matches_jax(bf16_case):
     assert torch.equal(c_s, s) and torch.equal(c_i, i)
 
 
+@pytest.fixture(scope="module")
+def f16_case():
+    U, T, U32, T32 = _bf16_inputs(10, 64, 4097, 128, torch.float16)
+    ref_s, ref_i = pallas_fused_topk(jnp.asarray(U32, jnp.float16), jnp.asarray(T32, jnp.float16),
+                                     K, user_tile=64, item_tile=1024, interpret=True)
+    return U, T, U32, T32, np.asarray(ref_s), np.asarray(ref_i)
+
+
+def test_f16_table_fused_topk_matches_pallas(f16_case):
+    """U [64, 128] and T [4097, 128] in float16, k' 10: the port's
+    ``fused_topk_scores`` against the Pallas kernel in interpret mode on the
+    same float16 arrays (products exact, sums in float32), for float16
+    users and table, float32 users over the float16 table and float16 users
+    over a float32 table of the same values. Then the two mixed half
+    pairings, bfloat16 users (the float16 users rounded again) over the
+    float16 table and float16 users over a bfloat16 table, each against the
+    Pallas kernel on its values in float32 at precision "highest". Tolerance:
+    ``_assert_topk_close``."""
+    U, T, U32, T32, ref_s, ref_i = f16_case
+    for u, t in ((U, T), (U.float(), T), (U, T.float())):
+        s, i = fused_topk.fused_topk_scores(u, t, K)
+        _assert_topk_close(s.numpy(), i.numpy(), ref_s, ref_i, U32, T32)
+    # the mixed half pairings: bfloat16 users (the float16 ones rounded again)
+    # over the float16 table, float16 users over a bfloat16 table
+    Tb = T.to(torch.bfloat16)
+    for u, t in ((U.to(torch.bfloat16), T), (U, Tb)):
+        u32, t32 = u.float().numpy(), t.float().numpy()
+        m_s, m_i = pallas_fused_topk(jnp.asarray(u32), jnp.asarray(t32), K, user_tile=64,
+                                     item_tile=1024, interpret=True, precision="highest")
+        s, i = fused_topk.fused_topk_scores(u, t, K)
+        _assert_topk_close(s.numpy(), i.numpy(), np.asarray(m_s), np.asarray(m_i), u32, t32)
+
+
+def test_f16_table_retrieval_matches_jax(f16_case):
+    """``approx_topk_scores`` (with and without ``verify``) and
+    ``certified_topk_scores`` on the float16 table, with float16 and with
+    float32 users, against the JAX package's ``approx_topk_scores`` (exact
+    on the CPU) on the same float16 arrays and the Pallas kernel: float32
+    scores, int32 ids, every row certified."""
+    U, T, U32, T32, ref_s, ref_i = f16_case
+    j_s, j_i, j_cert = jax_approx_topk(jnp.asarray(U32, jnp.float16),
+                                       jnp.asarray(T32, jnp.float16), K, verify=True)
+    assert np.asarray(j_cert).all() and np.asarray(j_s).dtype == np.float32
+    _assert_topk_close(np.asarray(j_s), np.asarray(j_i), ref_s, ref_i, U32, T32)
+    for u in (U, U.float()):
+        s, i, cert = approx_topk_scores(u, T, K, verify=True)
+        assert cert.dtype == torch.bool and bool(cert.all()) and cert.shape == (64,)
+        _assert_topk_close(s.numpy(), i.numpy(), np.asarray(j_s), np.asarray(j_i), U32, T32)
+        s2, i2 = approx_topk_scores(u, T, K)
+        assert torch.equal(s2, s) and torch.equal(i2, i)
+        c_s, c_i = certified_topk_scores(u, T, K)
+        assert torch.equal(c_s, s) and torch.equal(c_i, i)
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
 def test_kernel_dtypes_are_named_in_the_refusal(dtype):
-    """Only float32 and bfloat16 reach the kernel or its plain version; any
-    other dtype raises a TypeError that names it."""
-    U = torch.zeros(4, 8, dtype=dtype)
-    T = torch.zeros(10, 8)
-    for args in ((U, T), (T[:4], U.new_zeros(10, 8))):
+    """float32, bfloat16 and float16 reach the kernel or its plain version,
+    on either side (float16 is accepted and ranks as its widened values do);
+    any other dtype raises a TypeError that names it."""
+    U = (torch.arange(32, dtype=torch.float32).reshape(4, 8) % 5 - 2).to(dtype)
+    T = torch.arange(80, dtype=torch.float32).reshape(10, 8) % 3 - 1
+    for args in ((U, T), (T[:4], U.new_zeros(10, 8) + U[0, 0])):
+        if dtype == torch.float16:
+            s, i = fused_topk.fused_topk_scores(*args, 3)
+            ref_s, ref_i = fused_topk.fused_topk_scores_reference(
+                args[0].float(), args[1].float(), 3)
+            assert torch.equal(s, ref_s) and torch.equal(i, ref_i)
+            continue
         with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
             fused_topk.fused_topk_scores(*args, 3)
+
+
+def test_near_tie_rule_reaches_the_last_slot():
+    """chip_smoke's near-tie rule (how the card's tests hold the tensor-core
+    path, whose float32 sums of exact products run in another order than
+    the plain version's): a kernel may rank the plain version's (k'+1)-th
+    item k'-th where the two scores lie within the summation-order bound
+    (``plain_topk_with_next`` gives that neighbour); without it a swap at
+    the last slot fails, and a swap with an item outside the bound fails
+    either way."""
+    U = torch.ones(1, 4)
+    T = torch.tensor([[0.0, 0.0, 0.0, 0.0], [1.0, 1.0, 1.0, 1.0], [0.5, 0.5, 0.5, 0.5],
+                      [0.5, 0.5, 0.5, 0.5 + 2.0 ** -21], [0.1, 0.0, 0.0, 0.0]])
+    s_p, i_p, s_next = chip_smoke.plain_topk_with_next(fused_topk, U, T, 2)
+    assert i_p.tolist() == [[1, 3]] and float(s_next[0]) == 2.0
+    swapped_s, swapped_i = torch.tensor([[4.0, 2.0]]), torch.tensor([[1, 2]], dtype=torch.int32)
+    err, near = chip_smoke._compare_topk("last slot", U, T, 2, swapped_s, swapped_i, s_p, i_p,
+                                         s_next=s_next)
+    assert near == 1 and err == 2.0 ** -21
+    with pytest.raises(SystemExit):
+        chip_smoke._compare_topk("last slot", U, T, 2, swapped_s, swapped_i, s_p, i_p)
+    far_s, far_i = torch.tensor([[4.0, 0.1]]), torch.tensor([[1, 4]], dtype=torch.int32)
+    with pytest.raises(SystemExit):
+        chip_smoke._compare_topk("last slot", U, T, 2, far_s, far_i, s_p, i_p, s_next=s_next)
 
 
 # ------------------------------------------------------------ launch plan
 
 
-@pytest.mark.parametrize("esize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("B", [128, 1024])
-def test_launch_plan_at_catalog_scale(B, esize):
-    """bench_scale's catalog with a PAD row (2,097,153 items, d 128, k' 10):
-    chunks of 512 (the most a block's keys take), 4,097 of them (a last
-    chunk of one item) within the grid's 65,535; a block within the opt-in
-    shared memory; lists of k' + 32 = 42 entries, 172,033 a user, too many
-    for shared memory, so the merge reads them in place; item ids fit int32;
-    the scratch is 176 MB at B 128 and 1.41 GB at B 1024."""
+def test_launch_plan_at_catalog_scale(B, dtype):
+    """bench_scale's catalog with a PAD row (2,097,153 items, d 128, k' 10),
+    users of the table's type: chunks of 512 (the most a block's keys take),
+    4,097 of them (a last chunk of one item) within the grid's 65,535; a
+    block within the opt-in shared memory; item ids fit int32.
+
+    float32 (the CUDA cores): a list of k' + 32 = 42 entries per chunk,
+    172,033 a user (176 MB at B 128, 1.41 GB at B 1024), too many for shared
+    memory, so the split merge reads them (each at most once) in 5 blocks a
+    user at B 128 (640 blocks, at least 4 per SM) and one at B 1024.
+
+    bfloat16 and float16 (the tensor cores): range mode, a score block over
+    63 chunks at B 128 and 513 at B 1024 (one wave: 2 x 66 and 16 x 8
+    blocks), one list of k' per range (66 and 8 a user), taken by the split
+    merge because a warp per user would leave SMs idle: 5 blocks a user at
+    B 128 (640 blocks), one at B 1024."""
     I, d = 2 * 1024 * 1024 + 1, 128
-    plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS, esize)
+    esize = torch.empty((), dtype=dtype).element_size()
+    mma = fused_topk.uses_tensor_cores(dtype, dtype)
+    assert mma == (dtype != torch.float32)
+    plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS, esize, mma)
     assert plan.chunk == 512 and plan.splits == 4097 <= fused_topk.MAX_SPLITS
-    assert plan.smem == fused_topk.smem_bytes(d, 512, esize) <= H100_SMEM
-    merge = fused_topk.merge_plan(I, K, plan, H100_SMEM)
-    assert merge.n == 4096 * 42 + 1 and not merge.keys_in_smem
-    assert merge.team == 32 and merge.kp == 32
+    assert plan.smem == fused_topk.smem_bytes(d, 512, esize, mma) <= H100_SMEM
+    cpb = fused_topk.chunks_per_block(B, K, plan, H100_SMS, mma)
+    merge = fused_topk.merge_plan(B, I, K, plan, H100_SMEM, H100_SMS, cpb)
     assert merge.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
     assert I < 2**31 and merge.n < 2**31  # ids and list positions in int32
     assert 8 * fused_topk.scratch_entries(B, K, plan) == B * 4097 * 42 * 8
     assert {128: 176_203_776, 1024: 1_409_630_208}[B] == 8 * fused_topk.scratch_entries(
         B, K, plan)
+    parts = {128: 5, 1024: 1}[B]
+    assert B * parts >= 4 * H100_SMS
+    if not mma:
+        assert cpb == 1
+        assert merge == (4096 * 42 + 1, 256, fused_topk.MERGE_THREADS, False,
+                         8 * fused_topk.CAND_CAP, parts)
+        assert fused_topk.scratch_words(B, K, plan, merge) == \
+            B * 4097 * 42 + 2 * (B * 4097 // 2) + B * (fused_topk.CAND_CAP + 1)
+        return
+    cpb_want, lists = {128: (63, 66), 1024: (513, 8)}[B]
+    assert cpb == cpb_want and -(-4097 // cpb) == lists
+    user_blocks = -(-B // fused_topk.BM)
+    assert H100_SMS - user_blocks < user_blocks * lists <= H100_SMS  # one wave
+    assert merge == (lists * K, 256, fused_topk.MERGE_THREADS, False,
+                     8 * fused_topk.CAND_CAP, parts)
+    assert fused_topk.scratch_words(B, K, plan, merge, cpb) == \
+        B * lists * K + 2 * (B * lists // 2) + B * (fused_topk.CAND_CAP + 1)
 
 
 def test_launch_plan_at_the_pallas_bench_shape():
@@ -149,8 +266,8 @@ def test_launch_plan_at_the_pallas_bench_shape():
     128 chunks of 512; the lists (5,376 entries a user) fit shared memory."""
     plan = fused_topk.launch_plan(1024, 65536, 64, H100_SMEM, H100_SMS)
     assert plan == (64, 512, 128, 211968)
-    merge = fused_topk.merge_plan(65536, K, plan, H100_SMEM)
-    assert merge == (128 * 42, 32, 32, True, 8 * (8 * (32 + 2) + 4 * 128 * 42))
+    merge = fused_topk.merge_plan(1024, 65536, K, plan, H100_SMEM, H100_SMS)
+    assert merge == (128 * 42, 32, 32, True, 8 * (8 * (32 + 2) + 4 * 128 * 42), 0)
 
 
 def test_launch_plan_refuses_past_the_grid_and_shared_memory():
@@ -167,12 +284,19 @@ def test_plan_bytes_match_the_cuda_layout():
     launch refuses any other)."""
     with open(fused_topk.SOURCE, encoding="utf-8") as f:
         src = f.read()
-    pins = re.findall(r"static_assert\(score_smem_bytes<(float|__nv_bfloat16)>\((\d+), (\d+)\)"
-                      r" == (\d+)", src)
-    assert {p[0] for p in pins} == {"float", "__nv_bfloat16"}
-    for ctype, d, chunk, nbytes in pins:
+    pins = re.findall(r"static_assert\(score_smem_bytes<(float|__nv_bfloat16|__half), "
+                      r"(true|false)>\((\d+), (\d+)\) == (\d+)", src)
+    assert {p[:2] for p in pins} == {("float", "false"), ("__nv_bfloat16", "false"),
+                                     ("__half", "false"), ("__nv_bfloat16", "true"),
+                                     ("__half", "true")}
+    for ctype, mma, d, chunk, nbytes in pins:
         esize = 4 if ctype == "float" else 2
-        assert fused_topk.smem_bytes(int(d), int(chunk), esize) == int(nbytes)
+        assert fused_topk.smem_bytes(int(d), int(chunk), esize, mma == "true") == int(nbytes)
+    constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(constants["kCandCap"]) == fused_topk.CAND_CAP
+    assert int(constants["kBKM"]) == fused_topk.BK_MMA
+    assert int(constants["kMergeStaticSmem"]) == fused_topk.MERGE_STATIC_SMEM
+    assert int(constants["kMaxChunk"]) == fused_topk.MAX_CHUNK
 
 
 # ------------------------------------------------------- the scale step
