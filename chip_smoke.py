@@ -13,10 +13,11 @@ their published protocol and FairGo (graph propagation, pretrain then
 adversarial finetune) through ``run_recbole``, trains with resident epochs
 and runs a hyper-parameter search, runs the parallel layer on a world of
 one NCCL rank, serves a catalog of 2M items stored in bfloat16 and in
-float16 and takes the train step at that scale, checks that every path that
-has a kernel went through it, and holds every kernel
-against its plain PyTorch version at the shapes the paths give it. Imports
-nothing of JAX.
+float16 and takes the train step at that scale, runs ``bench_torch.py``
+(bench.py's legs on the port) in a process of its own, checks that every
+path that has a kernel went through it, and holds every kernel against its
+plain PyTorch version at the shapes the paths give it. Imports nothing of
+JAX.
 
 Phases, each of which exits non-zero when it fails:
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
@@ -106,7 +107,14 @@ Phases, each of which exits non-zero when it fails:
      the shard call timed beside topk(matmul) on the same shard;
      sharded_propagate at FairGo's n (9,671) and the exchange lookup equal
      their single-device forms; the group is destroyed;
- 11. kernels: each kernel against its plain version on the inputs the
+ 11. bench: ``bench_torch.py --repeats 1`` (bench.py's legs on the port) in a
+     process of its own that loads the kernel library phase 2 built and
+     builds nothing: it must exit 0 with every key of bench.py, the dense and
+     streaming evaluations agreeing (the streaming one through the kernel,
+     the dense one without it), the kernel exact against the library call by
+     the near-tie rule, the approx recall 1.0 and every number finite and
+     positive; its JSON line, wall time and launches are printed;
+ 12. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
@@ -2748,6 +2756,59 @@ def scale(work_dir, card):
     return launches, rows, step
 
 
+BENCH_REPEATS = 1  # samples per leg of the bench phase (sizes stay bench.py's)
+
+
+def _built_libraries():
+    """{name: mtime} of the kernel libraries in the build directory."""
+    build_dir = os.path.join(REPO, PACKAGE, "_build")
+    return {name: os.path.getmtime(os.path.join(build_dir, name))
+            for name in os.listdir(build_dir) if name.endswith(".so")}
+
+
+def bench(card):
+    """Phase 11: ``bench_torch.py --repeats BENCH_REPEATS`` in a process of
+    its own, on the kernel library phase 2 built (no library is built or
+    rebuilt). Fails on a non-zero exit, a missing key of bench.py, dense and
+    streaming evaluations that disagree, a kernel that is not exact against
+    the library call, an approx recall other than 1.0 or a number that is
+    not finite and positive. Returns the launch counts of its run."""
+    import torch
+
+    import bench_torch
+
+    torch.cuda.empty_cache()  # this process's cached blocks, for the child's scale leg
+    libraries = _built_libraries()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py"), "--repeats",
+                           str(BENCH_REPEATS)], cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench: bench_torch.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+    if _built_libraries() != libraries:
+        fail(f"bench: bench_torch.py built a kernel library: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    launches = json.loads(next(line for line in lines if line.startswith("launches: "))[10:])
+    missing = [key for key in (*bench_torch.KEYS, "device") if key not in out]
+    if missing:
+        fail(f"bench: keys of bench.py missing: {missing}")
+    if out["eval_variants_agree"] is not True or out["pallas_topk_exact"] is not True:
+        fail(f"bench: eval_variants_agree {out['eval_variants_agree']}, pallas_topk_exact "
+             f"{out['pallas_topk_exact']}")
+    if out["scale_fullsort_approx_recall_vs_exact"] != 1.0:
+        fail(f"bench: approx recall {out['scale_fullsort_approx_recall_vs_exact']}, not 1.0")
+    bad = [key for key, v in out.items() if isinstance(v, (int, float)) and not isinstance(v, bool)
+           and not (math.isfinite(v) and v > 0)]
+    if bad:
+        fail(f"bench: numbers not finite and positive: {[(key, out[key]) for key in bad]}")
+    print(f"bench: {json.dumps(out)}", flush=True)
+    print(f"bench: bench_torch.py --repeats {BENCH_REPEATS} in {wall:.3f} s; launches "
+          f"{json.dumps(launches)}; {card}", flush=True)
+    return launches
+
+
 def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
     """The registry's trainer for ``model``, on the card with every
     parameter and buffer (FairGo's propagation matrices included): a
@@ -2860,8 +2921,19 @@ def plain_topk_with_next(mod, U, T, k):
 
 def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offset=0,
                   s_next=None):
+    """``topk_disagreement``, failing the run where it finds one; returns
+    (max_abs_err, near-tie swaps)."""
+    problem, err, near = topk_disagreement(U, T, k, s_k, i_k, s_p, i_p, pad_masked, col_offset,
+                                           s_next)
+    if problem:
+        fail(f"fused_topk[{label}]: {problem}")
+    return err, near
+
+
+def topk_disagreement(U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offset=0, s_next=None):
     """A kernel's top-k' (``s_k``, ``i_k``) against the plain version's on the
-    same inputs; returns (max_abs_err, near-tie swaps). ``pad_masked=False``
+    same inputs; returns (what disagrees or None, max_abs_err, near-tie
+    swaps). ``pad_masked=False``
     (the shard mode) allows item 0; indices are ``col_offset`` + row of T.
     ``s_next`` (``plain_topk_with_next``) is the plain version's (k'+1)-th
     score, the last slot's neighbour in its whole ranking.
@@ -2879,16 +2951,16 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offse
 
     B, d = U.shape
     if s_k.shape != (B, k) or i_k.shape != (B, k):
-        fail(f"fused_topk[{label}]: output shapes {tuple(s_k.shape)}, {tuple(i_k.shape)}")
+        return f"output shapes {tuple(s_k.shape)}, {tuple(i_k.shape)}", None, None
     if s_k.dtype != torch.float32 or i_k.dtype != torch.int32:
-        fail(f"fused_topk[{label}]: output types {s_k.dtype}, {i_k.dtype}")
+        return f"output types {s_k.dtype}, {i_k.dtype}", None, None
     inf_k, inf_p = torch.isneginf(s_k), torch.isneginf(s_p)
     if not torch.equal(inf_k, inf_p):
-        fail(f"fused_topk[{label}]: -inf slots differ")
+        return "-inf slots differ", None, None
     if bool((i_k[inf_k] != 0).any()):
-        fail(f"fused_topk[{label}]: a -inf slot carries an index other than 0")
+        return "a -inf slot carries an index other than 0", None, None
     if pad_masked and bool((i_k[~inf_k] == 0).any()):
-        fail(f"fused_topk[{label}]: the PAD item 0 was selected")
+        return "the PAD item 0 was selected", None, None
     fin = ~inf_p
     i_safe = (i_p.long() - col_offset).clamp_min(0)
     tol = 2 * d * 2.0 ** -24 * _abs_dot(U, T, i_safe)
@@ -2896,7 +2968,7 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offse
     diff[~fin] = 0
     err = float(diff.max()) if diff.numel() else 0.0
     if bool((diff > 1e-5 * s_p.abs().where(fin, torch.zeros_like(s_p)) + tol).any()):
-        fail(f"fused_topk[{label}]: scores differ by up to {err}")
+        return f"scores differ by up to {err}", err, None
     near = torch.zeros_like(fin)
     gap = (s_p[:, 1:] - s_p[:, :-1]).abs()
     gap_tol = torch.maximum(1e-6 * s_p[:, 1:].abs(), tol[:, 1:])
@@ -2909,9 +2981,9 @@ def _compare_topk(label, U, T, k, s_k, i_k, s_p, i_p, pad_masked=True, col_offse
     bad = (i_k != i_p) & ~near
     if bool(bad.any()):
         b, j = (int(x) for x in torch.nonzero(bad)[0])
-        fail(f"fused_topk[{label}]: index {int(i_k[b, j])} != {int(i_p[b, j])} at "
-             f"row {b} slot {j} (scores {float(s_k[b, j])}, {float(s_p[b, j])})")
-    return err, int(((i_k != i_p) & near).sum())
+        return (f"index {int(i_k[b, j])} != {int(i_p[b, j])} at row {b} slot {j} "
+                f"(scores {float(s_k[b, j])}, {float(s_p[b, j])})", err, None)
+    return None, err, int(((i_k != i_p) & near).sum())
 
 
 def check_fused_topk(mod, U, T, k, label, card, reps=20, extra=None):
@@ -3034,7 +3106,10 @@ def main():
     parallel_launches, shard_row = parallel(data_root, work, card, (U, T, k_prime))
     print(f"parallel: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # phase 11: every kernel against its plain version
+    # phase 11: bench.py's legs on the port, in a process of their own
+    bench_launches = bench(card)
+
+    # phase 12: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     gen = torch.Generator().manual_seed(2020)
     rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)] + adv_rows
@@ -3071,7 +3146,8 @@ def main():
                            "fairgo": fairgo_launches[k["name"]],
                            "resident": resident_launches[k["name"]],
                            "parallel": parallel_launches[k["name"]],
-                           "scale": scale_launches[k["name"]]} for k in KERNELS}
+                           "scale": scale_launches[k["name"]],
+                           "bench": bench_launches[k["name"]]} for k in KERNELS}
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],

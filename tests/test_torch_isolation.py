@@ -117,6 +117,17 @@ def test_kernel_sweep_imports_no_jax():
     assert not roots & set(FORBIDDEN)
 
 
+def test_bench_torch_imports_no_jax_nor_bench_py():
+    """``bench_torch.py`` keeps its own copy of what it needs from
+    ``bench.py``: it imports neither it nor JAX, the JAX package, pandas or
+    PyYAML, at any scope."""
+    with open(os.path.join(REPO, "bench_torch.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    roots = {root for root, _ in _imports_with_scope(tree)}
+    assert "recbole_fairrec_tpu_torch" in roots
+    assert not roots & (set(FORBIDDEN) | {"bench"})
+
+
 _TRAIN_AND_SERVE_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -313,6 +324,27 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_BENCH_SCRIPT = r"""
+import sys
+for blocked in ("jax", "jaxlib", "optax", "recbole_fairrec_tpu", "bench", "pandas", "yaml"):
+    sys.modules[blocked] = None  # importing any of them raises ImportError
+sys.path.insert(0, sys.argv[1])
+import torch
+import bench_torch
+cpu, size = torch.device("cpu"), bench_torch.Size(60, 80, 1500, 256)
+data = sys.argv[2] + "/data"
+trainer, train_data, valid_data = bench_torch.build(cpu, data, size)
+bench_torch.bench_train_step(trainer, train_data, cpu, size)
+assert bench_torch.bench_eval(trainer, valid_data, cpu, repeats=1)["eval_variants_agree"]
+bench_torch.bench_fairgo_finetune_epoch(cpu, "bfloat16", data, size, repeats=1)
+bench_torch.bench_pallas_topk(cpu, (16, 512, 8, 10), repeats=1)
+leaked = sorted(m for m in sys.modules
+                if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "optax", "pandas", "yaml",
+                                        "recbole_fairrec_tpu", "bench"))
+print("LEAKED", leaked)
+"""
+
 _SERVE_ON_CPU_SCRIPT = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -399,6 +431,17 @@ def test_scale_and_surface_run_with_jax_blocked(tmp_path):
     afterwards no JAX, optax, JAX-package, pandas or yaml module is
     loaded."""
     proc = _run_script(_SCALE_AND_SURFACE_SCRIPT, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_bench_torch_legs_run_with_jax_blocked(tmp_path):
+    """bench_torch's pipeline, train step, both evaluation variants, the
+    bf16 FairGo finetune epoch and the top-k comparison at a tiny size on
+    the CPU, in a fresh interpreter where importing JAX, optax, the JAX
+    package, bench.py, pandas or PyYAML raises; afterwards none is
+    loaded."""
+    proc = _run_script(_BENCH_SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout[-2000:]
 
