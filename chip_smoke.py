@@ -14,10 +14,11 @@ adversarial finetune) through ``run_recbole``, trains with resident epochs
 and runs a hyper-parameter search, runs the parallel layer on a world of
 one NCCL rank, serves a catalog of 2M items stored in bfloat16 and in
 float16 and takes the train step at that scale, runs ``bench_torch.py``
-(bench.py's legs on the port) in a process of its own, checks that every
-path that has a kernel went through it, and holds every kernel against its
-plain PyTorch version at the shapes the paths give it. Imports nothing of
-JAX.
+(bench.py's legs on the port) in a process of its own, trains FOCF to
+convergence on ml-100k-fair through the whole-run parity runner in another,
+checks that every path that has a kernel went through it, and holds every
+kernel against its plain PyTorch version at the shapes the paths give it.
+Imports nothing of JAX.
 
 Phases, each of which exits non-zero when it fails:
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
@@ -114,7 +115,16 @@ Phases, each of which exits non-zero when it fails:
      the dense one without it), the kernel exact against the library call by
      the near-tie rule, the approx recall 1.0 and every number finite and
      positive; its JSON line, wall time and launches are printed;
- 12. kernels: each kernel against its plain version on the inputs the
+ 12. parity: ``python -m recbole_fairrec_tpu_torch.scripts.parity_runs --run
+     FOCF --seed 2020`` (one whole run of the published protocol unchanged:
+     uni100, the 12 metrics, epochs 300 with early stopping after 10
+     validations without a better NDCG@5, the best checkpoint reloaded for
+     the test) in a process of its own, its record written to a temporary
+     directory: it must exit 0 with a record that names the card and 12
+     finite test metrics, the headline's among them; its wall time,
+     epochs trained and test NDCG@5 are printed, and its kernel launches
+     (the sampled path: none) join the count;
+ 13. kernels: each kernel against its plain version on the inputs the
      serving path gave it, on the filtered, d 65 and unit-vector inputs of
      the adversarial phase, on gaussian inputs of the serving shapes (at the
      serving k', at k' 1 and at real ml-1M's k' 2048), at the largest k'
@@ -2809,6 +2819,48 @@ def bench(card):
     return launches
 
 
+PARITY_RUN = ("FOCF", 2020)  # run key and seed of the parity phase
+
+
+def parity_run(card):
+    """Phase 12: one whole run of the parity runner (``PARITY_RUN`` at the
+    protocol unchanged) in a process of its own, into a temporary directory.
+    Fails on a non-zero exit, a record that does not name the card, or a
+    test result without 12 finite metrics, the headline's gender rows among
+    them. Returns the kernel launches of the run."""
+    import tempfile
+
+    from recbole_fairrec_tpu_torch.scripts import parity_runs
+
+    run_key, seed = PARITY_RUN
+    with tempfile.TemporaryDirectory(prefix="parity_") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "recbole_fairrec_tpu_torch.scripts.parity_runs",
+                               "--run", run_key, "--seed", str(seed), "--out", out],
+                              cwd=REPO, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"parity: {run_key} seed {seed} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    prefix = "[parity] record "
+    lines = [line for line in proc.stdout.splitlines() if line.startswith(prefix)]
+    if len(lines) != 1:
+        fail(f"parity: {len(lines)} record lines, not 1: {proc.stdout[-3000:]}")
+    rec = json.loads(lines[0][len(prefix):])
+    if rec["card"] != card:
+        fail(f"parity: the record names the card {rec['card']!r}, not {card!r}")
+    test = rec["test_result"]
+    bad = {k: v for k, v in test.items() if not math.isfinite(v)}
+    headline = [m for m in parity_runs.HEADLINE if m.endswith("gender") or "@" in m]
+    if len(test) != 12 or bad or not set(headline) <= set(test):
+        fail(f"parity: the test result has {len(test)} metrics, not finite: {bad}, missing: "
+             f"{sorted(set(headline) - set(test))}")
+    print(f"parity: {run_key} seed {seed} in {wall:.3f} s (run_recbole {rec['wall_s']} s); "
+          f"epochs_trained {rec['epochs_trained']}; best valid ndcg@5 "
+          f"{rec['best_valid_score']}; test ndcg@5 {test['ndcg@5']}; launches "
+          f"{json.dumps(rec['launches'])}; {card}", flush=True)
+    return rec["launches"]
+
+
 def _require_card_trainer(trainer, phase, model="PFCN_PMF"):
     """The registry's trainer for ``model``, on the card with every
     parameter and buffer (FairGo's propagation matrices included): a
@@ -3109,7 +3161,12 @@ def main():
     # phase 11: bench.py's legs on the port, in a process of their own
     bench_launches = bench(card)
 
-    # phase 12: every kernel against its plain version
+    # phase 12: one whole run of the parity protocol, in a process of its own
+    t0 = time.perf_counter()
+    parity_launches = parity_run(card)
+    print(f"parity: phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # phase 13: every kernel against its plain version
     mod = _kernel_module(KERNELS[0])
     gen = torch.Generator().manual_seed(2020)
     rows = [check_fused_topk(mod, U, T, k_prime, "serving", card)] + adv_rows
@@ -3147,7 +3204,8 @@ def main():
                            "resident": resident_launches[k["name"]],
                            "parallel": parallel_launches[k["name"]],
                            "scale": scale_launches[k["name"]],
-                           "bench": bench_launches[k["name"]]} for k in KERNELS}
+                           "bench": bench_launches[k["name"]],
+                           "parity": parity_launches[k["name"]]} for k in KERNELS}
     summary = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
         "replaces": k["replaces"],
