@@ -116,12 +116,14 @@ Phases, each of which exits non-zero when it fails:
      the near-tie rule, the approx recall 1.0 and every number finite and
      positive; its JSON line, wall time and launches are printed;
  12. parity: ``python -m recbole_fairrec_tpu_torch.scripts.parity_runs --run
-     FOCF --seed 2020`` (one whole run of the published protocol unchanged:
-     uni100, the 12 metrics, epochs 300 with early stopping after 10
-     validations without a better NDCG@5, the best checkpoint reloaded for
-     the test) in a process of its own, its record written to a temporary
-     directory: it must exit 0 with a record that names the card and 12
-     finite test metrics, the headline's among them; its wall time,
+     FOCF --seed 2020``, then ``--run PFCN_PMF_cm_refbn --seed 2020`` (cm
+     filters, the filters' BatchNorm evaluated on per-user batches), each
+     one whole run of the published protocol unchanged (uni100, the 12
+     metrics, epochs 300 with early stopping after 10 validations without a
+     better NDCG@5, the best checkpoint reloaded for the test) in a process
+     of its own, its record written to a temporary directory: each must
+     exit 0 with a record that names the card and 12 finite test metrics
+     (PFCN's of its one subset), the headline's among them; its wall time,
      epochs trained and test NDCG@5 are printed, and its kernel launches
      (the sampled path: none) join the count;
  13. kernels: each kernel against its plain version on the inputs the
@@ -2819,20 +2821,22 @@ def bench(card):
     return launches
 
 
-PARITY_RUN = ("FOCF", 2020)  # run key and seed of the parity phase
+# run keys and seeds of the parity phase
+PARITY_RUNS = (("FOCF", 2020), ("PFCN_PMF_cm_refbn", 2020))
 
 
-def parity_run(card):
-    """Phase 12: one whole run of the parity runner (``PARITY_RUN`` at the
-    protocol unchanged) in a process of its own, into a temporary directory.
-    Fails on a non-zero exit, a record that does not name the card, or a
-    test result without 12 finite metrics, the headline's gender rows among
-    them. Returns the kernel launches of the run."""
+def parity_run(card, run=PARITY_RUNS[0]):
+    """Phase 12: one whole run of the parity runner (``run``, a run key and
+    seed of ``PARITY_RUNS``, at the protocol unchanged) in a process of its
+    own, into a temporary directory. Fails on a non-zero exit, a record that
+    does not name the card, or a test result (PFCN's: of its one subset)
+    without 12 finite metrics, the headline's gender rows among them.
+    Returns the kernel launches of the run."""
     import tempfile
 
     from recbole_fairrec_tpu_torch.scripts import parity_runs
 
-    run_key, seed = PARITY_RUN
+    run_key, seed = run
     with tempfile.TemporaryDirectory(prefix="parity_") as out:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "recbole_fairrec_tpu_torch.scripts.parity_runs",
@@ -2848,7 +2852,7 @@ def parity_run(card):
     rec = json.loads(lines[0][len(prefix):])
     if rec["card"] != card:
         fail(f"parity: the record names the card {rec['card']!r}, not {card!r}")
-    test = rec["test_result"]
+    test = parity_runs._flat_test_result(rec)
     bad = {k: v for k, v in test.items() if not math.isfinite(v)}
     headline = [m for m in parity_runs.HEADLINE if m.endswith("gender") or "@" in m]
     if len(test) != 12 or bad or not set(headline) <= set(test):
@@ -3161,9 +3165,12 @@ def main():
     # phase 11: bench.py's legs on the port, in a process of their own
     bench_launches = bench(card)
 
-    # phase 12: one whole run of the parity protocol, in a process of its own
+    # phase 12: whole runs of the parity protocol, each in a process of its own
     t0 = time.perf_counter()
-    parity_launches = parity_run(card)
+    parity_launches = {}
+    for run in PARITY_RUNS:
+        for name, n in parity_run(card, run).items():
+            parity_launches[name] = parity_launches.get(name, 0) + n
     print(f"parity: phase {time.perf_counter() - t0:.3f} s", flush=True)
 
     # phase 13: every kernel against its plain version

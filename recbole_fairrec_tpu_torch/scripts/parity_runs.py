@@ -7,10 +7,11 @@ The protocol is the repository's ``scripts/parity_runs.py``, copied here
 reference model YAMLs restated in one config file per run (``BASE_CFG`` +
 ``MODEL_CFG``), RS [8, 1, 1] / RO, uni100, NDCG@5 as the valid metric, the
 12 metrics, epochs 300 / early stop 10 (FairGo: 60 pretrain + 100 finetune
-epochs), seeds 2020-2024. A run goes through the port's ``run_recbole``
-(``Trainer.fit`` with a validation every epoch, early stopping, the best
-checkpoint reloaded before ``evaluate(test)``) on the card unless
-``--device cpu``.
+epochs), each run key at the seeds of the JAX package's records of it
+(2020-2024; PFCN_MLP_refbn 2020-2029). A run goes through the port's
+``run_recbole`` (``Trainer.fit`` with a validation every epoch, early
+stopping, the best checkpoint reloaded before ``evaluate(test)``) on the
+card unless ``--device cpu``.
 
     python -m recbole_fairrec_tpu_torch.scripts.parity_runs --run FOCF --seed 2020
     python -m recbole_fairrec_tpu_torch.scripts.parity_runs --matrix [--models ...] [--seeds ...]
@@ -27,14 +28,16 @@ keys ``card`` (nvidia-smi's name and power limit), ``torch``,
 the run: the uni100 protocol takes the sampled path, so none). Each record is also printed as one line,
 ``[parity] record {...}``. NFCF first trains ``NFCF_pre`` of the same seed
 and finetunes from its checkpoint. ``--matrix`` runs one process per run,
-one after another, and skips records that exist.
+one after another, and skips records that exist; without ``--seeds`` a
+run key takes its JAX records' seeds.
 
 ``--report`` writes ``PARITY_TORCH.md``: per run key the port against the
-JAX package (its CPU record where both exist; no row can read EXPLAINED)
-and against the reference (with ``scripts/parity_runs.py``'s EXPLAINED
-table and its small-batch ``*sb`` values for FairGo's Value, Absolute and
-Underestimation Unfairness). PFCN_PMF_sm_ga is held against the JAX package
-subset by subset.
+JAX package (its CPU record where both exist; no row can read EXPLAINED;
+the multi-attribute PFCN keys subset by subset) and against the reference
+(with ``scripts/parity_runs.py``'s EXPLAINED table and its small-batch
+``*sb`` values for FairGo's Value, Absolute and Underestimation
+Unfairness). A ``_refbn`` key is held against its own JAX records and,
+directly (no EXPLAINED row), against its parent's reference records.
 """
 
 from __future__ import annotations
@@ -261,10 +264,22 @@ PORT_RUNS = {
 # valid-score dip reach ~1.5× the NDCG of runs that stop in it), so parity
 # needs enough seeds for the spread to capture that variance.
 SEEDS = [2020, 2021, 2022, 2023, 2024]
-# one configuration per family; NFCF trains NFCF_pre first
-MATRIX = ["FOCF", "NFCF", "FairGo_PMF", "PFCN_PMF_sm_ga", "FairGo_PMF_bf16prop"]
-REPORT_ORDER = ["FOCF", "NFCF_pre", "NFCF", "FairGo_PMF", "PFCN_PMF_sm_ga",
-                "FairGo_PMF_bf16prop"]
+# every run key with JAX records, then the port's own; NFCF trains NFCF_pre
+# first
+MATRIX = ["FOCF", "NFCF", "FairGo_PMF", "PFCN_PMF_sm_ga", "FairGo_PMF_bf16prop",
+          "PFCN_PMF_cm", "PFCN_PMF_sm", "PFCN_PMF_cm_refbn", "PFCN_PMF_sm_refbn",
+          "PFCN_MLP", "PFCN_MLP_refbn", "PFCN_MLP_ga",
+          "PFCN_DMF", "PFCN_DMF_refbn", "PFCN_BiasedMF",
+          "PFCN_PMF_cm_ga", "FairGo_GCN", "FairGo_PMF_ga"]
+REPORT_ORDER = ["FOCF", "NFCF_pre", "NFCF",
+                "FairGo_PMF", "FairGo_PMF_bf16prop", "FairGo_PMF_ga", "FairGo_GCN",
+                "PFCN_PMF_cm", "PFCN_PMF_cm_refbn", "PFCN_PMF_sm", "PFCN_PMF_sm_refbn",
+                "PFCN_PMF_cm_ga", "PFCN_PMF_sm_ga",
+                "PFCN_MLP", "PFCN_MLP_refbn", "PFCN_MLP_ga",
+                "PFCN_DMF", "PFCN_DMF_refbn", "PFCN_BiasedMF"]
+# why a run key's section has no reference table
+NO_REF = {"FairGo_GCN": "the reference's FairGo_GCN imports `torch_geometric`, "
+                        "which its environment lacks (PARITY_RUNS.md §FairGo_GCN)"}
 
 
 def _model_name(run_key):
@@ -280,6 +295,21 @@ def _model_name(run_key):
 def _parent_run(run_key):
     """The run key whose records a run key is held against."""
     return PORT_RUNS[run_key][0] if run_key in PORT_RUNS else run_key
+
+
+def _ref_run(run_key):
+    """The run key whose reference records a run key is held against: a
+    ``_refbn`` key's parent, whose reference runs evaluate as it does."""
+    parent = _parent_run(run_key)
+    return _REFBN_PARENTS.get(parent, parent)
+
+
+def jax_seeds(run_key, jax_runs_dir=JAX_RUNS_DIR):
+    """The seeds of the JAX package's ``ours`` records of the run key that
+    ``run_key`` is held against."""
+    prefix = f"{_parent_run(run_key)}_ours_"
+    return sorted({int(re.match(r"\d+", os.path.basename(path)[len(prefix):]).group())
+                   for path in glob.glob(os.path.join(jax_runs_dir, prefix + "*.json"))})
 
 
 def _write_cfg(run_key, seed, ckpt_dir, extra_subst=None, device="cuda"):
@@ -425,13 +455,14 @@ def run_one(run_key, seed, device="cuda", runs_dir=RUNS_DIR, overrides=None):
 
 
 def run_matrix(models=None, seeds=None, device="cuda", runs_dir=RUNS_DIR):
-    """One process per run, one after another; a run whose record exists is
-    skipped. Each process's output goes to ``<runs_dir>/ckpt/<tag>.log``;
-    its record line is printed here when it ends. Returns the failed tags."""
+    """One process per run, one after another, at ``seeds`` or each run
+    key's ``jax_seeds``; a run whose record exists is skipped. Each
+    process's output goes to ``<runs_dir>/ckpt/<tag>.log``; its record line
+    is printed here when it ends. Returns the failed tags."""
     os.makedirs(os.path.join(runs_dir, "ckpt"), exist_ok=True)
     failed = []
     for model in models or MATRIX:
-        for seed in seeds or SEEDS:
+        for seed in seeds or jax_seeds(model):
             tag = f"{model}_{FRAMEWORK}_{seed}"
             if os.path.exists(os.path.join(runs_dir, f"{tag}.json")):
                 print(f"[parity] skip {tag} (exists)", flush=True)
@@ -630,6 +661,14 @@ def _table(title, yard_name, rows):
     return lines + [""]
 
 
+def _subsets(runs):
+    """The subset keys of multi-attribute PFCN records (shortest first), or
+    [] where a test result is flat or holds one subset."""
+    tr = runs[0]["test_result"]
+    nested = [k for k, v in tr.items() if isinstance(v, dict)]
+    return sorted(nested, key=len) if len(nested) > 1 else []
+
+
 def report(runs_dir=RUNS_DIR, jax_runs_dir=JAX_RUNS_DIR, out=REPORT):
     """Write ``PARITY_TORCH.md`` from the port's records and the JAX
     package's and reference's; returns the DIVERGENT rows as (run key,
@@ -639,6 +678,7 @@ def report(runs_dir=RUNS_DIR, jax_runs_dir=JAX_RUNS_DIR, out=REPORT):
     ref = {k: [p for p in v if p["device"] == "cpu"]
            for k, v in load_records(jax_runs_dir, "ref").items()}
     divergent = []
+    counts = {}
     lines = [
         "# PARITY_TORCH — whole runs of the port against the JAX package and the reference",
         "",
@@ -650,18 +690,25 @@ def report(runs_dir=RUNS_DIR, jax_runs_dir=JAX_RUNS_DIR, out=REPORT):
         "Protocol (`scripts/parity_runs.py`, copied in the port's module):",
         "ml-100k-fair, RS[8,1,1]/RO, uni100, NDCG@5 valid metric, the 12",
         "metrics, epochs 300 / early stop 10 (FairGo: 60 pretrain + 100",
-        "finetune epochs), batch 2048, adam 1e-3, seeds 2020–2024. The port",
-        "draws from torch generators, the JAX package from threefry, so",
-        "per-seed outcomes differ and the comparison is distributional.",
+        "finetune epochs), batch 2048, adam 1e-3, each run key at the seeds",
+        "of the JAX package's records of it (2020–2024; PFCN_MLP_refbn",
+        "2020–2029). The port draws from torch generators, the JAX package",
+        "from threefry, so per-seed outcomes differ and the comparison is",
+        "distributional.",
         "",
         "**Criterion** (PARITY_RUNS.md's): two-sided exact Mann-Whitney",
         "rank-sum p over the seeds; PASS if p ≥ 0.05 or |Δmean| ≤ 0.01;",
         "`PASS (desc.)` where the seed counts leave the exact test no",
         "rejection power. Against the JAX package no row can read EXPLAINED",
         "(its adjudications explain the JAX package against the reference):",
-        "a row that fails reads DIVERGENT. Against the reference, the JAX",
-        "report's EXPLAINED table applies (PARITY_RUNS.md §Adjudications),",
-        "and `*sb` rows take the reference's small-batch dual-eval values.",
+        "a row that fails reads DIVERGENT; a multi-attribute PFCN key has one",
+        "table per subset. Against the reference, the JAX report's EXPLAINED",
+        "table applies (PARITY_RUNS.md §Adjudications), and `*sb` rows take",
+        "the reference's small-batch dual-eval values. A `_refbn` key",
+        "(`reference_bn_eval_emulation: True`: the filters' BatchNorm",
+        "evaluates on per-user batch statistics, as the reference's does) is",
+        "held against its parent's reference records DIRECTLY: both sides",
+        "evaluate the same scorer, so no row can read EXPLAINED.",
         "`FairGo_PMF_bf16prop` (the port's FairGo_PMF with",
         "`propagation_dtype: bfloat16`) is held against the float32",
         "FairGo_PMF records, with FairGo_PMF's adjudications.",
@@ -670,11 +717,12 @@ def report(runs_dir=RUNS_DIR, jax_runs_dir=JAX_RUNS_DIR, out=REPORT):
     run_keys = [k for k in REPORT_ORDER if k in port] + sorted(set(port) - set(REPORT_ORDER))
     for run_key in run_keys:
         runs = port[run_key]
-        parent = _parent_run(run_key)
-        yard_ours, yard_ref = ours.get(parent, []), ref.get(parent, [])
+        parent, ref_key = _parent_run(run_key), _ref_run(run_key)
+        yard_ours, yard_ref = ours.get(parent, []), ref.get(ref_key, [])
+        ref_name = "ref" if ref_key == parent else f"ref of {ref_key}"
         cards = "; ".join(sorted({str(p.get("card")) for p in runs}))
         lines += [f"## {run_key}  (torch ×{len(runs)}, ours ×{len(yard_ours)}, "
-                  f"ref ×{len(yard_ref)})", "",
+                  f"{ref_name} ×{len(yard_ref)})", "",
                   f"Card: {cards}. Epochs trained: FairGo's pretrain + finetune; "
                   "best epoch: of the valid curve (FairGo: finetune).", "",
                   "| seed | wall s (torch) | epochs trained | best epoch | best valid (torch) "
@@ -691,26 +739,55 @@ def report(runs_dir=RUNS_DIR, jax_runs_dir=JAX_RUNS_DIR, out=REPORT):
         lines.append("")
         tables = []
         if yard_ours:
-            if run_key == "PFCN_PMF_sm_ga":
-                subsets = sorted(runs[0]["test_result"], key=len)
-                for sub in subsets:
-                    tables.append(("ours", f"torch against ours: subset `{sub}`",
-                                   compare(yard_ours, runs,
-                                           flat=lambda p, s=sub: p["test_result"].get(s, {}))))
-            else:
+            subsets = _subsets(runs)
+            for sub in subsets:
+                tables.append(("ours", f"torch against ours: subset `{sub}`",
+                               compare(yard_ours, runs,
+                                       flat=lambda p, s=sub: p["test_result"].get(s, {}))))
+            if not subsets:
                 tables.append(("ours", "torch against ours", compare(yard_ours, runs)))
         else:
             lines += ["No JAX-package records for this run key.", ""]
-        if yard_ref:
+        if yard_ref and ref_key != parent:
+            tables.append(("ref", f"torch against ref of `{ref_key}`: DIRECT (both sides "
+                                  "evaluate the filters' BatchNorm on per-user batches)",
+                           compare(yard_ref, runs)))
+        elif yard_ref:
             sb = ref.get(f"{parent}_sb")
             tables.append(("ref", "torch against ref" + (" (`*sb`: small-batch values)"
                                                          if sb else ""),
                            compare(yard_ref, runs, explain_model=parent, sb_runs=sb)))
+        else:
+            lines += [f"No reference records: {NO_REF.get(run_key, 'none exist')}.", ""]
         for yard_name, title, rows in tables:
             lines += _table(title, yard_name, rows)
+            for r in rows:
+                if "verdict" in r:
+                    key = (yard_name, r["verdict"])
+                    counts[key] = counts.get(key, 0) + 1
             divergent += [(run_key, yard_name, title, r["metric"]) for r in rows
                           if r.get("verdict") == "DIVERGENT"]
-    lines += ["## Summary", ""]
+    lines += ["## Summary", "",
+              f"{len(run_keys)} run keys, {sum(len(port[k]) for k in run_keys)} runs of the port.",
+              "", "| yardstick | PASS | PASS (desc.) | EXPLAINED | DIVERGENT |",
+              "|---|---|---|---|---|"]
+    for yard_name in ("ours", "ref"):
+        lines.append(f"| {yard_name} | " + " | ".join(
+            str(counts.get((yard_name, v), 0))
+            for v in ("PASS", "PASS (desc.)", "EXPLAINED", "DIVERGENT")) + " |")
+    lines += ["", "Walls (`wall_s`: `run_recbole`'s ETL, fit and test) and epochs trained "
+              "(FairGo: pretrain + finetune) by seed; s an epoch is wall over all epochs.", "",
+              "| run key | wall s a run | epochs trained | s an epoch |", "|---|---|---|---|"]
+    for run_key in run_keys:
+        runs = port[run_key]
+        epochs = [p.get("pretrain_epochs_trained", 0) + p["epochs_trained"] for p in runs]
+        per = [p["wall_s"] / e for p, e in zip(runs, epochs) if e]
+        lines.append(f"| {run_key} | {' / '.join(str(p['wall_s']) for p in runs)} | "
+                     + " / ".join(f"{p['pretrain_epochs_trained']}+{p['epochs_trained']}"
+                                  if "pretrain_epochs_trained" in p else str(p["epochs_trained"])
+                                  for p in runs)
+                     + (f" | {min(per):.2f}–{max(per):.2f} |" if per else " | — |"))
+    lines.append("")
     if divergent:
         lines += [f"- DIVERGENT: {k}, {title}: {m}" for k, _, title, m in divergent]
     else:

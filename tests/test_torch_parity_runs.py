@@ -336,3 +336,67 @@ def test_chip_smoke_main_runs_the_parity_phase():
               if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
     assert "parity_run" in called
     assert not assigned & funcs
+
+
+def _phase_run_with(monkeypatch, run, record):
+    """chip_smoke.parity_run for ``run`` with its child process replaced by
+    one that printed ``record``; returns the phase's result."""
+    import subprocess
+    import sys
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    def fake_run(cmd, **kwargs):
+        assert cmd[1:7] == ["-m", "recbole_fairrec_tpu_torch.scripts.parity_runs", "--run",
+                            run[0], "--seed", str(run[1])] and cmd[7] == "--out"
+        return subprocess.CompletedProcess(cmd, 0, f"[parity] record {json.dumps(record)}\n", "")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    return chip_smoke.parity_run("NVIDIA H100 80GB HBM3, 700.00 W", run)
+
+
+def _cm_refbn_record():
+    """The JAX package's PFCN_PMF_cm_refbn record of seed 2020 as the port's
+    from the card: a test result nested under its one subset."""
+    with open(os.path.join(port.JAX_RUNS_DIR, "PFCN_PMF_cm_refbn_ours_2020.json")) as f:
+        rec = json.load(f)
+    rec.update(framework="torch", device="cuda", card="NVIDIA H100 80GB HBM3, 700.00 W",
+               epochs_trained=30, valid_curve=[0.1], launches={"fused_topk": 0})
+    return rec
+
+
+def test_chip_smoke_parity_phase_runs_focf_then_pfcn_cm_refbn():
+    import sys
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    assert chip_smoke.PARITY_RUNS == (("FOCF", 2020), ("PFCN_PMF_cm_refbn", 2020))
+    assert chip_smoke.parity_run.__defaults__ == (("FOCF", 2020),)
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        assert "for run in PARITY_RUNS:\n        for name, n in parity_run(card, run)" in f.read()
+
+
+def test_chip_smoke_parity_phase_flattens_a_pfcn_record(monkeypatch, capsys):
+    rec = _cm_refbn_record()
+    assert list(rec["test_result"]) == ["cm-['gender']"]
+    assert _phase_run_with(monkeypatch, ("PFCN_PMF_cm_refbn", 2020), rec) == {"fused_topk": 0}
+    out = capsys.readouterr().out
+    assert "parity: PFCN_PMF_cm_refbn seed 2020 in " in out
+    assert f"test ndcg@5 {rec['test_result']['cm-[' + repr('gender') + ']']['ndcg@5']}" in out
+
+
+@pytest.mark.parametrize("fault", ["nan", "missing", "two_subsets"])
+def test_chip_smoke_parity_phase_fails_on_a_bad_pfcn_record(monkeypatch, fault):
+    rec = _cm_refbn_record()
+    sub = rec["test_result"]["cm-['gender']"]
+    if fault == "nan":
+        sub["NonParity Unfairness of sensitive attribute gender"] = float("nan")
+    elif fault == "missing":
+        del sub["ndcg@5"]
+    else:  # the headline subset lacks the gender rows
+        rec["test_result"]["cm-['gender', 'age']"] = {k.replace("gender", "age"): v
+                                                      for k, v in sub.items()}
+    with pytest.raises(SystemExit):
+        _phase_run_with(monkeypatch, ("PFCN_PMF_cm_refbn", 2020), rec)
