@@ -37,7 +37,7 @@ from logging import getLogger
 import numpy as np
 import torch
 
-from ..utils import FeatureSource, FeatureType, InputType, ModelType
+from ..utils import FeatureSource, FeatureType, InputType, ModelType, tracing
 from .interaction import Interaction
 
 
@@ -297,7 +297,9 @@ class TrainDataLoader(_NegSamplingLoader):
         self.dataset.shuffle()
 
     def _next_batch_data(self):
-        cur_data = self._neg_sampling(self.dataset[self.pr : self.pr + self.step])
+        with tracing.span("dataloader.train_fetch") as sp:
+            cur_data = self._neg_sampling(self.dataset[self.pr : self.pr + self.step])
+            sp.set("rows", len(cur_data))
         self.pr += self.step
         return cur_data
 
@@ -430,27 +432,33 @@ class NegSampleEvalDataLoader(_NegSamplingLoader):
             cur_data = self._neg_sampling(self.dataset[self.pr : self.pr + self.step])
             self.pr += self.step
             return cur_data, None, None, None
-
-        j0, j1 = self.pr, min(self.pr + self.step, len(self.segments))
-        skel = self._skeleton(j0, j1)
-        lo, hi = self.segments.lo[j0:j1], self.segments.hi[j0:j1]
-        sample_num = self.neg_spec.sample_num
-        # one sampler call per user, in user order (the numpy RNG stream)
-        negs = [
-            self.sampler.sample_one_key(int(u), int(h - l) * sample_num)
-            for u, l, h in zip(self.segments.uid[j0:j1], lo, hi)
-        ]
-        fields = dict(skel["fields"])
-        item_col = skel["fields"][self.iid_field].clone()
-        item_col[skel["neg_mask"]] = torch.from_numpy(np.concatenate(negs)).to(item_col.dtype)
-        fields[self.iid_field] = item_col
-        out = Interaction(fields)
-        out.update(Interaction({self.neg_spec.label_field: skel["labels"]}))
-        if self.dataset.item_feat is not None:
-            # item features of the rewritten negative ids
-            out = self.dataset.join(out)
-        self.pr += self.step
-        return out, skel["row_idx"], skel["positive_u"], skel["positive_i"]
+        with tracing.span("dataloader.sampled_fetch") as sp:
+            j0, j1 = self.pr, min(self.pr + self.step, len(self.segments))
+            sp.set("users", j1 - j0)
+            skel = self._skeleton(j0, j1)
+            lo, hi = self.segments.lo[j0:j1], self.segments.hi[j0:j1]
+            sample_num = self.neg_spec.sample_num
+            # one sampler call per user, in user order (the numpy RNG stream)
+            with tracing.span("sampler.draw") as draw:
+                negs = [
+                    self.sampler.sample_one_key(int(u), int(h - l) * sample_num)
+                    for u, l, h in zip(self.segments.uid[j0:j1], lo, hi)
+                ]
+                if draw:
+                    rows = int((hi - lo).sum()) * sample_num
+                    draw.set("rows", rows)
+                    tracing.count("sampler.rows_drawn", rows)
+            fields = dict(skel["fields"])
+            item_col = skel["fields"][self.iid_field].clone()
+            item_col[skel["neg_mask"]] = torch.from_numpy(np.concatenate(negs)).to(item_col.dtype)
+            fields[self.iid_field] = item_col
+            out = Interaction(fields)
+            out.update(Interaction({self.neg_spec.label_field: skel["labels"]}))
+            if self.dataset.item_feat is not None:
+                # item features of the rewritten negative ids
+                out = self.dataset.join(out)
+            self.pr += self.step
+            return out, skel["row_idx"], skel["positive_u"], skel["positive_i"]
 
 
 class FullSortEvalDataLoader(AbstractDataLoader):

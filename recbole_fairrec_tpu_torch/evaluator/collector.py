@@ -13,13 +13,18 @@ import copy
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .register import Register
 
 
 def _np(value):
-    """Host numpy view of an array-like (a torch tensor may live on the card)."""
+    """Host numpy view of an array-like (a torch tensor may live on the card;
+    reading one from there counts as a host sync)."""
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
+        value = value.detach()
+        if value.device.type != "cpu":
+            value = tracing.to_host(value)
+        return value.numpy()
     return np.asarray(value)
 
 

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+from ..utils import tracing
 from .register import metrics_dict
 
 
@@ -18,9 +19,12 @@ class Evaluator:
             metric: metrics_dict[metric](self.config) for metric in self.metrics
         }
 
+    @tracing.traced("evaluator.run")
     def evaluate(self, dataobject) -> OrderedDict:
         result_dict = OrderedDict()
         for metric in self.metrics:
-            metric_val = self.metric_class[metric].calculate_metric(dataobject)
+            with tracing.span("evaluator.metric") as sp:
+                sp.set("metric", metric)
+                metric_val = self.metric_class[metric].calculate_metric(dataobject)
             result_dict.update(metric_val)
         return result_dict

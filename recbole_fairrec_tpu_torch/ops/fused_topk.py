@@ -41,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from .topk import streaming_topk_scores
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -339,6 +340,7 @@ def launch_args(device, B, I, d, top_k, u_dtype, t_dtype):
     return args
 
 
+@tracing.traced("fused_topk.launch")
 def _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad):
     (B, d), device = user_emb.shape, user_emb.device
     u_dtype, t_dtype = user_emb.dtype, item_table.dtype

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False,
                           col_offset=0):
@@ -46,6 +48,21 @@ def streaming_topk_scores(user_emb, item_table, top_k, tile=4096, mask_pad=False
         (topk_scores [B, k] float32, topk_idx [B, k] int32). Slots beyond the
         number of items hold (−inf, 0).
     """
+    with _select_span(user_emb, item_table, top_k):
+        return _streaming_topk(user_emb, item_table, top_k, tile, mask_pad, col_offset)
+
+
+def _select_span(user_emb, item_table, top_k):
+    """The span ``topk.select`` of one call of an entry point."""
+    sp = tracing.span("topk.select")
+    if sp:
+        sp.set("rows", user_emb.shape[0])
+        sp.set("items", item_table.shape[0])
+        sp.set("k", top_k)
+    return sp
+
+
+def _streaming_topk(user_emb, item_table, top_k, tile, mask_pad, col_offset):
     B = user_emb.shape[0]
     I = item_table.shape[0]
     device = user_emb.device
@@ -75,7 +92,7 @@ def _exact_topk(user_emb, item_table, top_k, tile=4096):
         from .fused_topk import fused_topk_scores
 
         return fused_topk_scores(user_emb.contiguous(), item_table.contiguous(), top_k)
-    return streaming_topk_scores(user_emb, item_table, top_k, tile=tile, mask_pad=True)
+    return _streaming_topk(user_emb, item_table, top_k, tile, True, 0)
 
 
 def approx_topk_scores(user_emb, item_table, top_k, recall_target=0.95, verify=False):
@@ -86,7 +103,8 @@ def approx_topk_scores(user_emb, item_table, top_k, recall_target=0.95, verify=F
 
     The selection is exact (see the module doc), so ``recall_target`` is
     met trivially (recall 1.0) and every row is certified."""
-    vals, idx = _exact_topk(user_emb, item_table, top_k)
+    with _select_span(user_emb, item_table, top_k):
+        vals, idx = _exact_topk(user_emb, item_table, top_k)
     if not verify:
         return vals, idx
     return vals, idx, torch.ones(vals.shape[0], dtype=torch.bool, device=vals.device)
@@ -98,4 +116,5 @@ def certified_topk_scores(user_emb, item_table, top_k, recall_target=0.95, tile=
     and an exact rescue of the uncertified rows; here every row is
     certified by the exact selection, so no rescue runs. ``tile`` is the
     CPU path's item tile."""
-    return _exact_topk(user_emb, item_table, top_k, tile=tile)
+    with _select_span(user_emb, item_table, top_k):
+        return _exact_topk(user_emb, item_table, top_k, tile=tile)

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..evaluator import Collector, Evaluator
-from ..utils import calculate_valid_score, dict2str, early_stopping, set_color
+from ..utils import calculate_valid_score, dict2str, early_stopping, set_color, tracing
 from .trainer import Trainer
 
 
@@ -144,10 +144,13 @@ class PFCNTrainer(Trainer):
         return self._evaluate_groups(eval_data, [subsets], load_best_model, model_file)[0]
 
     def _valid_epoch(self, valid_data, show_progress=False):
-        valid_result = self.pfcn_evaluate(
-            valid_data, load_best_model=False, show_progress=show_progress
-        )
-        valid_score = calculate_valid_score(valid_result, self.valid_metric)
+        with tracing.span("trainer.valid") as sp:
+            if sp:
+                sp.set("subsets", len(self._sst_subsets()) if self.filter_mode != "none" else 1)
+            valid_result = self.pfcn_evaluate(
+                valid_data, load_best_model=False, show_progress=show_progress
+            )
+            valid_score = calculate_valid_score(valid_result, self.valid_metric)
         return valid_score, valid_result
 
     def evaluate(self, eval_data, load_best_model=True, model_file=None, show_progress=False):

@@ -114,6 +114,7 @@ from ..utils import (
     ensure_dir,
     get_local_time,
     set_color,
+    tracing,
 )
 from ..utils.jax_params import (
     load_jax_opt_state,
@@ -380,6 +381,7 @@ class Trainer(AbstractTrainer):
         )
         return batch
 
+    @tracing.traced("trainer.step")
     def _train_step(self, batch, loss_name, sst_list, optimizer):
         """One optimizer step on ``batch``; returns the loss (a detached
         scalar on the device, not read here).
@@ -423,25 +425,34 @@ class Trainer(AbstractTrainer):
         """One pass over the loader with the given (loss, sst subset,
         optimizer) selection, resident on the device when
         ``_resident_epoch_ok``. Returns the sum of the step losses (one host
-        read), or None for an empty loader."""
-        self._maybe_enable_device_sampling(train_data)
-        if self._resident_epoch_ok(train_data, loss_name, sst_list):
-            return self._run_epoch_resident(train_data, loss_name, sst_list, tx_tag)
-        optimizer = self._tx_by_tag(tx_tag)
-        fields = self.model.loss_batch_fields(loss_name, sst_list)
-        self.model.train()
-        total_loss = None
-        for interaction in train_data:
-            loss = self._train_step(
-                self._train_batch(interaction, fields), loss_name, sst_list, optimizer
-            )
-            total_loss = loss if total_loss is None else total_loss + loss
-        return self._epoch_total(total_loss)
+        read), or None for an empty loader. Traced as ``trainer.pass``, the
+        root of the pass's steps and fetches."""
+        with tracing.span("trainer.pass") as sp:
+            sp.set("tx_tag", tx_tag)
+            sp.set("sst_list", sst_list)
+            self._maybe_enable_device_sampling(train_data)
+            resident = self._resident_epoch_ok(train_data, loss_name, sst_list)
+            sp.set("resident", resident)
+            if resident:
+                total = self._run_epoch_resident(train_data, loss_name, sst_list, tx_tag)
+            else:
+                optimizer = self._tx_by_tag(tx_tag)
+                fields = self.model.loss_batch_fields(loss_name, sst_list)
+                self.model.train()
+                total_loss = None
+                for interaction in train_data:
+                    loss = self._train_step(
+                        self._train_batch(interaction, fields), loss_name, sst_list, optimizer
+                    )
+                    total_loss = loss if total_loss is None else total_loss + loss
+                total = self._epoch_total(total_loss)
+            sp.set("loss", total)
+            return total
 
     def _epoch_total(self, total_loss):
         if total_loss is None:
             return None
-        total = float(total_loss)  # single sync per epoch
+        total = float(tracing.to_host(total_loss))  # single sync per epoch
         self._check_nan(total)
         return total
 
@@ -577,8 +588,11 @@ class Trainer(AbstractTrainer):
         self.tensorboard.add_hparams(hparam_dict, {"hparam/best_valid_result": best_valid_result})
 
     def _valid_epoch(self, valid_data, show_progress=False):
-        valid_result = self.evaluate(valid_data, load_best_model=False, show_progress=show_progress)
-        valid_score = calculate_valid_score(valid_result, self.valid_metric)
+        with tracing.span("trainer.valid") as sp:
+            sp.set("subsets", 1)
+            valid_result = self.evaluate(valid_data, load_best_model=False,
+                                         show_progress=show_progress)
+            valid_score = calculate_valid_score(valid_result, self.valid_metric)
         return valid_score, valid_result
 
     def _save_sst_embed(self, data):
@@ -766,7 +780,8 @@ class Trainer(AbstractTrainer):
             for key, value in slots.items():
                 if torch.is_tensor(value) and value.dim() > 0:
                     slots[key] = all_gather_rows(value, self.mesh.group(shard.axis))
-        return _tree_map_tensors(lambda t: t.detach().cpu().numpy(), state, torch.Tensor)
+        return _tree_map_tensors(lambda t: tracing.to_host(t.detach()).numpy(), state,
+                                 torch.Tensor)
 
     def _load_optimizer_payload(self, optimizer, payload):
         """Restore ``optimizer`` from a checkpoint's ``optimizer`` entry: the
@@ -850,7 +865,7 @@ class Trainer(AbstractTrainer):
         n = len(interaction)
         batch = self._to_batch(interaction, pad_to=_bucket(n, 8192))
         out = self._get_predict_fn(sst_list)(batch)
-        return out.reshape(-1)[:n].cpu().numpy()
+        return tracing.to_host(out.reshape(-1)[:n]).numpy()
 
     # ------------------------------------------------------------ host paths
 
@@ -860,7 +875,7 @@ class Trainer(AbstractTrainer):
         pad_to = getattr(self, "_full_sort_pad", None) or n
         batch = self._to_batch(interaction, pad_to=max(pad_to, n))
         scores = self._get_full_sort_fn(sst_list)(batch)
-        scores = scores.reshape(-1, self.tot_item_num)[:n].cpu().numpy()
+        scores = tracing.to_host(scores.reshape(-1, self.tot_item_num)[:n]).numpy()
         return scores.astype(np.float64)
 
     def _full_sort_batch_eval(self, batched_data, sst_list=None):
@@ -975,11 +990,11 @@ class Trainer(AbstractTrainer):
         r = self.eval_collector.register
         payload = dict(extra or {})
         if r.need("rec.items"):
-            payload["rec.items"] = topk_idx[:n_rows].cpu().numpy()
+            payload["rec.items"] = tracing.to_host(topk_idx[:n_rows]).numpy()
         if r.need("rec.topk"):
-            payload["rec.topk"] = rec_topk[:n_rows].cpu().numpy()
+            payload["rec.topk"] = tracing.to_host(rec_topk[:n_rows]).numpy()
         if r.need("rec.positive_score"):
-            payload["rec.positive_score"] = pos_score[:n_pos].cpu().numpy()
+            payload["rec.positive_score"] = tracing.to_host(pos_score[:n_pos]).numpy()
         self.eval_collector.eval_batch_collect_topk(
             payload, interaction, positive_u, positive_i
         )
@@ -1029,7 +1044,7 @@ class Trainer(AbstractTrainer):
         def emit():
             extra = {}
             if neg_score is not None:
-                extra["rec.negative_score"] = neg_score.cpu().numpy()
+                extra["rec.negative_score"] = tracing.to_host(neg_score).numpy()
             if r.need("data.negative_i"):
                 neg_idx = self._neg_block_positions(n_rows, positive_u)
                 extra["data.negative_i"] = items_cpu.numpy()[neg_idx]
@@ -1171,7 +1186,7 @@ class Trainer(AbstractTrainer):
             self._last_eval_path = (
                 "streaming-kernel" if user_repr.device.type == "cuda" else "streaming"
             )
-        cand_i = cand_i[:B].cpu().numpy()
+        cand_i = tracing.to_host(cand_i[:B]).numpy()
 
         # indices at or past the catalogue are the distributed merge's sentinels
         forbidden = (cand_i == 0) | (cand_i >= self.tot_item_num)
@@ -1245,17 +1260,27 @@ class Trainer(AbstractTrainer):
     @staticmethod
     def _drain_collect(pending):
         """Call the deferred emits of ``_collect_batch`` in batch order (a
-        path that fed the collector itself left None)."""
-        for emit in pending:
-            if emit is not None:
-                emit()
-        pending.clear()
+        path that fed the collector itself left None): the payloads' copies
+        to the host, which wait for the device's scoring, and the collector."""
+        with tracing.span("trainer.drain") as sp:
+            sp.set("batches", len(pending))
+            for emit in pending:
+                if emit is not None:
+                    emit()
+            pending.clear()
 
     def _collect_batch(self, kind, batched_data, sst_list=None):
         """Score one eval batch: on the device where the metrics allow it,
         else through the host paths. The device paths return the closure
         that feeds the collector (see ``_drain_collect``); the others feed
-        it here and return None."""
+        it here and return None. Traced as ``trainer.collect_batch``."""
+        with tracing.span("trainer.collect_batch") as sp:
+            sp.set("rows", len(batched_data[0]))
+            emit = self._collect_batch_on_path(kind, batched_data, sst_list)
+            sp.set("path", self._last_eval_path)
+            return emit
+
+    def _collect_batch_on_path(self, kind, batched_data, sst_list):
         if kind == "full":
             if self._distributed_eval_ok() or self._streaming_eval_ok():
                 return self._collect_full_sort_streaming(batched_data, sst_list)
