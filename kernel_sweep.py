@@ -18,9 +18,11 @@ calls), which splits the score + select kernel from the merge.
 rows: a 2,097,152 x 128 table and users in bfloat16, then in float16, at B
 128 and 1024, k' 10, each checked against the plain version, with the
 split, the bound and the library call). ``--modes`` then times the
-bfloat16 table at each B again with range mode off (a list per chunk) and
-on, at k' 1 and 10, each with its split: what the selection costs beside
-the products, and what range mode saves.
+bfloat16 table at each B again with range mode off (a list per chunk), on
+the tensor-core kernel (``mma.sync``) and on the Hopper range kernel (TMA +
+``wgmma``, the plan's default), at k' 1 and 10, each with its split: what
+the selection costs beside the products, what range mode saves, and what
+the Hopper kernel saves.
 """
 
 from __future__ import annotations
@@ -144,29 +146,32 @@ def _scale(card, out, modes):
 
 def _modes(fused_topk, users, T, card):
     """Each B at k' 1 and 10 with range mode off (RANGE_MAX_K 0: a list per
-    chunk, the split merge) and on (the plan's default): the median of one
-    call and the split into the two CUDA kernels. The module's plan is put
-    back afterwards."""
+    chunk, the split merge), on the tensor-core kernel (WGMMA_MAX_D 0) and
+    on the Hopper range kernel (the plan's default): the median of one call
+    and the split into the two CUDA kernels. The module's plan is put back
+    afterwards."""
     import chip_smoke as cs
 
     rows = []
-    saved = fused_topk.RANGE_MAX_K
+    saved = fused_topk.RANGE_MAX_K, fused_topk.WGMMA_MAX_D
     try:
         for B, U in users.items():
-            for mode, max_k in (("chunk", 0), ("range", saved)):
+            for mode, max_k, max_d in (("chunk", 0, 0), ("range", saved[0], 0),
+                                       ("wgmma", *saved)):
                 for k in (1, cs.SCALE_K):
-                    fused_topk.RANGE_MAX_K = max_k
+                    fused_topk.RANGE_MAX_K, fused_topk.WGMMA_MAX_D = max_k, max_d
                     fused_topk._LAUNCH_ARGS.clear()
                     call = lambda: fused_topk.fused_topk_scores(U, T, k)  # noqa: E731
                     args = fused_topk.launch_args(U.device, B, T.shape[0], T.shape[1], k,
                                                   U.dtype, T.dtype)
                     row = {"label": f"modes {mode} B{B} k{k}", "B": B, "k": k, "mode": mode,
-                           "launch_shape": args[1], "ms": cs._median_ms(call, 5),
+                           "path": args[3], "launch_shape": args[1],
+                           "ms": cs._median_ms(call, 5),
                            "kernels_us": cs.kernel_times_us(call, calls=3), "card": card}
                     rows.append(json.dumps(row))
                     print(f"kernel: fused_topk {rows[-1]}", flush=True)
     finally:
-        fused_topk.RANGE_MAX_K = saved
+        fused_topk.RANGE_MAX_K, fused_topk.WGMMA_MAX_D = saved
         fused_topk._LAUNCH_ARGS.clear()
     return rows
 

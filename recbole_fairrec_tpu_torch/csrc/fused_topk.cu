@@ -14,11 +14,16 @@
 // accumulates in f32, preferred_element_type=float32). A half-precision
 // table is read as it is stored. Every product of two bf16, two f16 or an
 // f16 and a bf16 value is exact in f32, so the scores are f32 sums of exact
-// products, as on the TPU up to summation order. Two paths:
-//  * same-type half calls (bf16 x bf16, f16 x f16) run the products on the
-//    tensor cores (mma.sync m16n8k16, f32 accumulators), which keep them
-//    exact; only the order and rounding of the d additions differ from a
-//    chain of fmaf;
+// products, as on the TPU up to summation order. Three paths:
+//  * same-type half calls (bf16 x bf16, f16 x f16) with k' <= 32 over many
+//    chunks, whose table TMA can read (d % 8 == 0, d <= 128, 16-byte
+//    aligned users and table), run the Hopper range kernel
+//    (score_select_wgmma_kernel: TMA, wgmma with f32 accumulators, the
+//    selection in registers; below);
+//  * the other same-type half calls run the products on the tensor cores
+//    through mma.sync m16n8k16 (f32 accumulators). Either way the products
+//    stay exact; only the order and rounding of the d additions differ
+//    from a chain of fmaf;
 //  * every call with an f32 operand, and the mixed bf16 / f16 pairs, run
 //    explicit fmaf on the CUDA cores, each half value widened to f32 where
 //    it enters the register tile (bf16 by a shift, f16 by __half2float).
@@ -47,8 +52,26 @@
 // 1024); range mode keeps the lists themselves small (k' per range instead
 // of 42 per chunk: 17.5 MB at B 1024 instead of 1.41 GB).
 //
+// The Hopper range kernel at catalog scale (kernel_sweep.py --scale --modes,
+// H100 80GB HBM3 at 700 W, bf16, k' 10): B 128 0.508 ms a call back to back
+// (score + select 0.490, merge 0.017) against the 0.160 ms bytes bound, B
+// 1024 1.727 ms (1.675 + 0.035) against the 0.556 ms operations bound. A
+// call alone: 0.580 / 1.782 ms, where the mma.sync range mode it replaces
+// took 1.601 / 6.759 ms; the plain version 111 / 276 ms,
+// topk(mm(out_dtype=f32)) 3.88 / 30.7 ms. Against
+// the bytes at B 128, TMA streams each tile once, 5 in flight an SM (the
+// products and a vote a tile alone take ~0.18 ms). Against the operations
+// at B 1024, wgmma runs with the users held in registers and no barrier in
+// the depth loop (products and vote alone ~0.97 ms). The rest, at both
+// sizes, is selection: a score above its user's running threshold (about
+// k' ln(items / k') of them a user and range) turns a warp's tile from 64
+// maxima and a vote into a scan, and a warpgroup's next products wait for
+// its slowest warp.
+//
 // Design: two kernels per call, on one stream.
-//  1. score + select, grid (ceil(B/64), S), 256 threads. A block owns kBM =
+//  1. score + select. The Hopper range kernel is described where it is
+//     defined (score_select_wgmma_kernel); the others: grid (ceil(B/64),
+//     S), 256 threads. A block owns kBM =
 //     64 users and one chunk of the item axis (S chunks of `chunk` items, a
 //     multiple of 256, at most 512).
 //     * Products apart from selection: the block computes its whole
@@ -70,7 +93,9 @@
 //     * Each score becomes a 32-bit key whose unsigned order is the float
 //       order (-0.0 folded into +0.0 first: the float compare calls them
 //       equal, the bits would not). Item 0 gets the key of -inf.
-//     * Range mode (tensor cores, k' <= 32, catalogs of many chunks): a
+//     * Range mode of score_select_mma_kernel (k' <= 32, catalogs of many
+//       chunks, only the calls the Hopper range kernel cannot take: d % 8
+//       != 0, d > 128, a user or table pointer off 16 bytes): a
 //       block walks cpb consecutive chunks (U staged once; the next chunk's
 //       first T tiles copied while the current one's keys are selected),
 //       and each warp keeps, for each of its 8 users, the exact top k' seen
@@ -161,6 +186,7 @@
 //                         smem2, col_offset, mask_pad, u_type, t_type, stream)
 //     -> cudaGetLastError() code of the first launch that failed, else 0
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -1163,6 +1189,528 @@ score_select_mma_kernel(const TH* __restrict__ U, const TH* __restrict__ T,
   if (range) write_range(lists, bounds, maxes, set, lo, b0, B, k, warp, lane);
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper range kernel (score_select_wgmma_kernel): range mode rebuilt on
+// TMA and wgmma for same-type half calls with k' <= 32, 16-byte aligned
+// tensors, d % 8 == 0 and d <= kWgMaxD. A block of 384 threads holds
+// kWgUsers = 128 users: warps 0-3 and 4-7 are two consumer warpgroups of 64
+// users each (wgmma's M side), warps 8-11 the producer warpgroup, one thread
+// of which keeps kWgStages T tiles of kWgTile items in flight (TMA into a
+// ring of mbarrier stages; setmaxnreg moves its registers to the
+// consumers). A tile is the full depth: ceil(d / 64) panels of 128 rows x
+// 128 bytes, 128-byte swizzled, so no barrier falls inside the depth loop.
+// Both warpgroups read the same tiles; each runs its 64 x 128 products
+// (m64n128k16, A = its users from registers, loaded once, B = the tile from
+// shared memory, f32 accumulators) and then selects from them.
+constexpr int kWgUsers = 128;          // users per block: two warpgroups of 64
+constexpr int kWgTile = 128;           // items per T tile (wgmma's N)
+constexpr int kWgStages = 5;           // T tiles in flight
+constexpr int kWgConsumerWarps = 8;    // two warpgroups
+constexpr int kWgThreads = 32 * kWgConsumerWarps + 128;  // and the producer warpgroup
+// registers a thread of the producer and of a consumer warpgroup holds after
+// setmaxnreg: 128 x 40 + 256 x 232 <= 65,536
+constexpr int kWgProducerRegs = 40;
+constexpr int kWgConsumerRegs = 232;
+constexpr int kWgMaxD = 128;           // depth the layout holds: two panels
+constexpr int kPanel = 64;             // elements of a 128-byte swizzled row
+constexpr int kCandWords = 64;         // a user's top-k' set and its candidates
+constexpr int kWgWarpUsers = 16;       // users of a consumer warp
+
+// Dynamic shared memory of a block, in the order of its layout after up to
+// 1,024 bytes that align it (the swizzle repeats every 1,024 bytes):
+// ring[kWgStages][panels][kWgTile][128 B] | cand[kWgUsers][kCandWords] u64
+// (each user's buffer) | full[kWgStages], empty[kWgStages] mbarriers.
+// ops/fused_topk.py::wgmma_smem_bytes mirrors it; the launch refuses a plan
+// whose bytes differ.
+__host__ __device__ constexpr long long wgmma_smem_bytes(int d) {
+  return 1024ll + static_cast<long long>((d + kPanel - 1) / kPanel) * 128 * kWgStages * kWgTile +
+         8ll * kWgUsers * kCandWords + 16ll * kWgStages;
+}
+static_assert(wgmma_smem_bytes(128) == 230480, "the catalog's d 128 block");
+static_assert(wgmma_smem_bytes(64) == 148560, "a d 64 block");
+static_assert(wgmma_smem_bytes(8) == 148560, "a d 8 block: one panel");
+static_assert(128 * kWgProducerRegs + 32 * kWgConsumerWarps * kWgConsumerRegs <= 65536,
+              "the warpgroups' registers fit the SM's");
+static_assert(kWgUsers == 2 * 64 && kWgConsumerWarps * kWgWarpUsers == kWgUsers,
+              "two warpgroups of 64 users, 16 a warp");
+static_assert((kCandWords - kRangeMaxK) / 4 >= 8, "a lane's region holds 8 words at k' 32");
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed. The
+// loop is inside the asm, so the compiler sees no divergent path around the
+// wgmma that follows.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// rows [y, y + kWgTile) x columns [x, x + kPanel) of the table into shared
+// memory, 128-byte swizzled; out-of-range rows and columns arrive as zeros
+__device__ __forceinline__ void tma_load_tile(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                              int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// wgmma's view of a K-major operand whose rows are 128 bytes, 128-byte
+// swizzled, 8-row groups 1,024 bytes apart
+__device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
+  return static_cast<unsigned long long>((addr & 0x3ffffu) >> 4) | (1ull << 16) |
+         (static_cast<unsigned long long>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define WGMMA_D64(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T for one warpgroup, A from
+// registers (warp w of it holds rows 16 w .. 16 w + 15 as mma.m16n8k16's A
+// fragment: a[0] row g columns 2 q, 2 q + 1; a[1] row g + 8; a[2], a[3] the
+// same 8 columns on), B from shared memory. Thread t of the warpgroup holds
+// rows 16 (t / 32) + (t % 32) / 4 + {0, 8} and columns 8 j + 2 (t % 4) +
+// {0, 1}, j < 16, as d[4 j + {0, 1}] (row +0) and d[4 j + {2, 3}] (row +8).
+// Products exact, sums in f32.
+template <typename TH>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const unsigned (&a)[4],
+                                           unsigned long long db, int accumulate) {
+  if constexpr (std::is_same<TH, __nv_bfloat16>::value) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WGMMA_D64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WGMMA_D64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
+// Sums over the 4 lanes of a quad: all of them, and those of lower lanes.
+__device__ __forceinline__ int quad_sum(int v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+__device__ __forceinline__ int quad_before(int v, int q) {
+  int y = v;
+  int o = __shfl_up_sync(kFull, y, 1, 4);
+  if (q >= 1) y += o;
+  o = __shfl_up_sync(kFull, y, 2, 4);
+  if (q >= 2) y += o;
+  return y - v;
+}
+
+constexpr int kQuadWords = kCandWords / 4;  // buffer words a lane reads in a cut
+
+// A user's buffer: kCandWords words, entries (item << 32 | key), 0 where
+// empty (every real key is above 0). Logical word p lies at (p + rot) % 64,
+// rot = 4 (g % 4) for the users of quad g, so that the 16 lanes of a
+// half-warp, reading word q + 4 i of their users at once, fall on 16
+// distinct 8-byte bank pairs. The set takes words [0, k'), then lane q of
+// the quad has a candidate region of R = (kCandWords - k') / 4 words at k' +
+// q R: a lane appends the items of its own columns that beat the user's
+// threshold there, with no exchange between lanes.
+struct Buf {
+  unsigned long long* w;
+  int rot;
+  __device__ __forceinline__ unsigned long long& operator[](int p) const {
+    return w[(p + rot) & (kCandWords - 1)];
+  }
+};
+static_assert((kCandWords & (kCandWords - 1)) == 0, "a buffer's words wrap by a mask");
+
+// A lane's selection state for its two users (rows g and g + 8 of its
+// warp): thresholds (the k'-th best score of the set at its last cut; -inf
+// until the user has held k', +inf for a row past B), words in the sets,
+// words in the lane's own regions, and the sets' bounds (the k'-th key, 0
+// where fewer).
+struct Sel {
+  float t0, t1;
+  int ns0, ns1, c0, c1;
+  unsigned tau0, tau1;
+};
+
+// The k'-th largest of the values a quad holds for one user (16 a lane, 0
+// for none), bit by bit from the top; 0 where it has fewer than k' values
+// above 0. Four partial counts per step, for independent chains.
+__device__ __forceinline__ unsigned quad_kth(const unsigned (&x)[kQuadWords], int k) {
+  unsigned a = 0u;
+#pragma unroll 2
+  for (int bit = 31; bit >= 0; --bit) {
+    const unsigned c = a | (1u << bit);
+    int part[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < kQuadWords; ++i) part[i & 3] += x[i] >= c ? 1 : 0;
+    if (quad_sum((part[0] + part[1]) + (part[2] + part[3])) >= k) a = c;
+  }
+  return a;
+}
+
+// One user's buffer cut to its best min(n, k') words (lane q of its quad
+// holds the keys of words q + 4 i in key): every word above tau, the k'-th
+// largest key, and of those equal to it the ones whose item is item_max or
+// below (the smallest ones: a later item ranks below an equal earlier one).
+// They are written, in no order, to [0, ns) and every other word cleared.
+// Returns tau where k' remain (the key of the user's new threshold), else 0.
+__device__ __forceinline__ unsigned quad_cut(const Buf& ub, const unsigned (&key)[kQuadWords],
+                                             unsigned tau, unsigned item_max, int& ns, int k,
+                                             int q) {
+  unsigned long long w[kQuadWords];
+  unsigned keep = 0u;
+#pragma unroll
+  for (int i = 0; i < kQuadWords; ++i) {
+    w[i] = ub[q + 4 * i];
+    const bool kp = key[i] != 0u && (key[i] > tau || (key[i] == tau &&
+                                                      static_cast<unsigned>(w[i] >> 32) <= item_max));
+    keep |= static_cast<unsigned>(kp) << i;
+  }
+  const int kept = __popc(keep);
+  int at = quad_before(kept, q);
+  ns = quad_sum(kept);
+  __syncwarp();  // every lane has read its words
+#pragma unroll
+  for (int i = 0; i < kQuadWords; ++i) ub[q + 4 * i] = 0ull;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kQuadWords; ++i)
+    if ((keep >> i) & 1u) ub[at++] = w[i];
+  __syncwarp();
+  return ns >= k ? tau : 0u;
+}
+
+// One user's buffer cut to its best min(n, k') words (quad_cut): its
+// threshold t rises to the k'-th best score where it holds k' words, its
+// bound tau is that score's key (0 where fewer), its candidate count c
+// restarts at 0. The items of keys tied at the k'-th are searched only
+// where more ties than places remain. Every lane of the warp takes part,
+// each quad for its own user.
+__device__ __forceinline__ void quad_keep_one(const Buf& ub, float& t, int& ns, int& c,
+                                              unsigned& tau, int k, int q) {
+  unsigned key[kQuadWords];
+#pragma unroll
+  for (int i = 0; i < kQuadWords; ++i) key[i] = static_cast<unsigned>(ub[q + 4 * i]);
+  const unsigned a = quad_kth(key, k);
+  int above = 0, tie = 0;
+#pragma unroll
+  for (int i = 0; i < kQuadWords; ++i) {
+    above += key[i] > a;
+    tie += key[i] == a && a != 0u;
+  }
+  const int m = k - quad_sum(above);  // places left for ties
+  const bool many = quad_sum(tie) > m;
+  // the ties' items; the m-th smallest of them is the largest one kept
+  unsigned mx = ~0u;
+  if (__any_sync(kFull, many)) {
+    unsigned it[kQuadWords];
+#pragma unroll
+    for (int i = 0; i < kQuadWords; ++i)  // ~item: the m-th largest is the m-th smallest item
+      it[i] = key[i] == a && a != 0u ? ~static_cast<unsigned>(ub[q + 4 * i] >> 32) : 0u;
+    const unsigned b = quad_kth(it, max(m, 1));
+    if (many) mx = ~b;
+  }
+  tau = quad_cut(ub, key, a, mx, ns, k, q);
+  if (tau != 0u) t = key_score(tau);
+  c = 0;
+}
+
+// Both users of a lane cut to their best min(n, k') words, one after the
+// other (quad_keep_one).
+__device__ __forceinline__ void quad_keep(const Buf& ub0, const Buf& ub1, Sel& st, int k, int q) {
+  quad_keep_one(ub0, st.t0, st.ns0, st.c0, st.tau0, k, q);
+  quad_keep_one(ub1, st.t1, st.ns1, st.c1, st.tau1, k, q);
+}
+
+// One pass of a lane over its columns of a tile (column 8 j + 2 q + e, item
+// item0 + 8 j + e, at acc[4 j + e] for user 0 and acc[4 j + 2 + e] for user
+// 1; columns [c_lo, c_hi) hold items), over the n8 blocks j in jmask (the
+// same for the whole warp) and from bit 2 j + e = from0 / from1 of each
+// user on: a score above the user's threshold (at or above it where not
+// STRICT) joins the lane's region, in column order, until the region is
+// full; stop0 / stop1 then hold the first bit left out.
+template <bool STRICT>
+__device__ __forceinline__ void scan_tile(const float (&acc)[64], Sel& st, const Buf& ub0,
+                                          const Buf& ub1, int reg, int R, int item0, int c_lo,
+                                          int c_hi, int q, unsigned jmask, int from0, int from1,
+                                          int& stop0, int& stop1) {
+  auto beats = [](float v, float t) { return STRICT ? v > t : v >= t; };
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (!((jmask >> j) & 1u)) continue;  // warp-uniform
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int bit = 2 * j + e;
+      const int col = 8 * j + 2 * q + e;
+      const bool in = col >= c_lo && col < c_hi;
+      const float v0 = acc[4 * j + e];
+      const float v1 = acc[4 * j + 2 + e];
+      if (in && bit >= from0 && beats(v0, st.t0)) {
+        if (st.c0 < R)
+          ub0[reg + st.c0++] = entry(order_key(v0), item0 + 8 * j + e);
+        else
+          stop0 = min(stop0, bit);
+      }
+      if (in && bit >= from1 && beats(v1, st.t1)) {
+        if (st.c1 < R)
+          ub1[reg + st.c1++] = entry(order_key(v1), item0 + 8 * j + e);
+        else
+          stop1 = min(stop1, bit);
+      }
+    }
+  }
+}
+
+// The selection of one tile whose scores a lane holds in acc (scan_tile's
+// layout). A tile whose scores are all at or below their users' thresholds
+// costs 64 maxima and one vote. Otherwise the warp scans the n8 blocks in
+// which any lane has a score above a threshold, and each lane appends
+// those scores to its regions, in column order. Where a region filled, the
+// warp's buffers are cut to their best k' (raising the thresholds) and the
+// lanes that stopped go on from the first column they left out, now taking
+// scores at or above the threshold: the cut's set may hold items of this
+// tile later than theirs, and an equal score of an earlier item ranks above
+// those; the next cut ranks them by item.
+__device__ __forceinline__ void select_tile(const float (&acc)[64], Sel& st, const Buf& ub0,
+                                            const Buf& ub1, int reg, int R, int k, int q,
+                                            int item0, int c_lo, int c_hi) {
+  float x[4], y[4];  // four partial maxima a user, for independent chains
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[j] = fmaxf(acc[4 * j], acc[4 * j + 1]);
+    y[j] = fmaxf(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+#pragma unroll
+  for (int j = 4; j < 16; ++j) {
+    x[j & 3] = fmaxf(x[j & 3], fmaxf(acc[4 * j], acc[4 * j + 1]));
+    y[j & 3] = fmaxf(y[j & 3], fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+  const float m0 = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+  const float m1 = fmaxf(fmaxf(y[0], y[1]), fmaxf(y[2], y[3]));
+  if (!__any_sync(kFull, m0 > st.t0 || m1 > st.t1)) return;  // the common case
+  unsigned jm[4] = {0u, 0u, 0u, 0u};  // bit j: n8 block j holds a score above a threshold
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    jm[j & 3] |= (fmaxf(acc[4 * j], acc[4 * j + 1]) > st.t0 ||
+                  fmaxf(acc[4 * j + 2], acc[4 * j + 3]) > st.t1 ? 1u : 0u) << j;
+  const unsigned jmask = __reduce_or_sync(kFull, (jm[0] | jm[1]) | (jm[2] | jm[3]));
+  int stop0 = 32, stop1 = 32;
+  scan_tile<true>(acc, st, ub0, ub1, reg, R, item0, c_lo, c_hi, q, jmask, 0, 0, stop0, stop1);
+  while (__any_sync(kFull, stop0 < 32 || stop1 < 32)) {
+    quad_keep(ub0, ub1, st, k, q);
+    const int from0 = stop0, from1 = stop1;
+    stop0 = 32;
+    stop1 = 32;
+    scan_tile<false>(acc, st, ub0, ub1, reg, R, item0, c_lo, c_hi, q, 0xffffu, from0, from1,
+                     stop0, stop1);
+  }
+}
+
+// The end of a range for one user (its quad): its set, min(n, k') words in
+// [0, ns) in no order, becomes its list for the range (k' entries in item
+// order, each word at its rank by item; entry(0, 0) where empty), with its
+// bound tau (the k'-th key, 0 where the range held fewer) and, where maxes
+// is not null, its largest key: the format of range mode's lists.
+__device__ __forceinline__ void quad_write(const Buf& ub, int ns, unsigned tau, int b, int k,
+                                           int q, unsigned long long* __restrict__ lists,
+                                           unsigned* __restrict__ bounds,
+                                           unsigned* __restrict__ maxes, bool live) {
+  const size_t at = static_cast<size_t>(b) * gridDim.y + blockIdx.y;
+  unsigned top = 0u;
+  for (int p = q; p < k; p += 4) {
+    const unsigned long long w = p < ns ? ub[p] : 0ull;  // 0 is entry(0, 0)
+    top = max(top, static_cast<unsigned>(w));
+    int rank = p;
+    if (p < ns) {
+      rank = 0;
+      for (int r = 0; r < ns; ++r) rank += (ub[r] >> 32) < (w >> 32);
+    }
+    if (live) lists[at * k + rank] = w;
+  }
+  top = max(top, __shfl_xor_sync(kFull, top, 1));
+  top = max(top, __shfl_xor_sync(kFull, top, 2));
+  if (live && q == 0) {
+    bounds[at] = tau;
+    if (maxes != nullptr) maxes[at] = top;
+  }
+}
+
+__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
+#pragma unroll
+  for (int j = 0; j < 64; ++j) asm volatile("" : "+f"(acc[j])::"memory");
+}
+
+// Range mode on Hopper (see kWgUsers above). Grid (ceil(B / kWgUsers),
+// ranges): block (x, y) takes users [128 x, 128 x + 128) and the items of
+// chunks [cpb y, cpb y + cpb), tiles of kWgTile in ascending order, and
+// writes one list of k' entries per (range, user) as range mode does.
+// Selection in registers (select_tile): a thread's accumulators hold 2
+// users (rows g and g + 8 of its warp's 16), 32 items each, and each user's
+// threshold sits in a register of each of the 4 lanes of its quad. A lane
+// appends its scores above it to its own region of the user's buffer in
+// shared memory; where a region fills, the warp's buffers are cut to their
+// best k' (quad_keep) and the thresholds raised. Items arrive in
+// ascending order, so a score equal to the threshold belongs to a later
+// item than k' words at or above it and ranks below them all: it is
+// rejected, across tiles, warpgroups and ranges alike. Item 0 (mask_pad)
+// and columns past the range are masked where scores are taken; the
+// accumulators are never written outside wgmma.
+template <typename TH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+score_select_wgmma_kernel(const __grid_constant__ CUtensorMap tmap, const TH* __restrict__ U,
+                          unsigned long long* __restrict__ lists, unsigned* __restrict__ bounds,
+                          unsigned* __restrict__ maxes, unsigned* __restrict__ counters, int B,
+                          int I, int d, int k, int chunk, int cpb, int mask_pad) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to 1,024 below
+  const unsigned raw = smem_addr(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const int panels = (d + kPanel - 1) / kPanel;
+  const int panel_rows = kWgTile * 128;  // bytes of one panel of a tile
+  unsigned char* ring = base;
+  auto* cand = reinterpret_cast<unsigned long long*>(ring + kWgStages * panels * panel_rows);
+  const unsigned bars = smem_addr(cand + kWgUsers * kCandWords);  // full[s] at 8 s, empty[s] at 8 (kWgStages + s)
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int b0 = blockIdx.x * kWgUsers;
+  const int S = (I + chunk - 1) / chunk;
+  const int r_begin = blockIdx.y * cpb * chunk;
+  const int r_end = min(I, min(S, (blockIdx.y + 1) * cpb) * chunk);
+  const int ntiles = (r_end - r_begin + kWgTile - 1) / kWgTile;
+  // the split merge's per-user counters start at 0 (the first range's
+  // blocks clear them, before the merge launches on the same stream)
+  if (counters != nullptr && blockIdx.y == 0 && tid < kWgUsers && b0 + tid < B)
+    reinterpret_cast<uint2*>(counters)[b0 + tid] = make_uint2(0u, 0u);
+  for (int i = tid; i < kWgUsers * kCandWords; i += kWgThreads) cand[i] = 0ull;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kWgStages + s), 32 * kWgConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumerWarps) {  // the producer warpgroup: one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs));
+    if (warp == kWgConsumerWarps && lane == 0) {
+      const unsigned ring_s = smem_addr(ring);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kWgStages;
+        mbar_wait(bars + 8 * (kWgStages + s), ((t / kWgStages) & 1) ^ 1);  // the slot is free
+        mbar_expect_tx(bars + 8 * s, panels * panel_rows);
+        for (int p = 0; p < panels; ++p)
+          tma_load_tile(ring_s + (s * panels + p) * panel_rows, &tmap, bars + 8 * s, p * kPanel,
+                        r_begin + t * kWgTile);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int row0 = 64 * wg + kWgWarpUsers * (warp & 3);  // the warp's first user in the block
+  const Buf buf0{cand + (row0 + g) * kCandWords, 4 * (g & 3)};      // user row0 + g
+  const Buf buf1{cand + (row0 + g + 8) * kCandWords, 4 * (g & 3)};  // user row0 + g + 8
+  const int R = (kCandWords - k) / 4;  // a lane's candidate region
+  const int reg = k + q * R;
+  const bool live0 = b0 + row0 + g < B;
+  const bool live1 = b0 + row0 + g + 8 < B;
+  const float inf = __int_as_float(0x7f800000);
+  Sel st{live0 ? -inf : inf, live1 ? -inf : inf, 0, 0, 0, 0, 0u, 0u};
+  const unsigned ring_s = smem_addr(ring);
+  const int nk = (d + 15) / 16;
+  // the warp's 16 users as wgmma's A fragments, 16 of depth a step (zeros
+  // past d and past B), held for the whole range
+  unsigned afrag[kWgMaxD / 16][4];
+  const auto* U32 = reinterpret_cast<const unsigned*>(U);
+#pragma unroll
+  for (int ks = 0; ks < kWgMaxD / 16; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = b0 + row0 + g + 8 * (r & 1);
+      const int col = 16 * ks + 2 * q + 8 * (r >> 1);
+      afrag[ks][r] = row < B && col < d ? __ldg(U32 + (static_cast<size_t>(row) * d + col) / 2) : 0u;
+    }
+  }
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % kWgStages;
+    mbar_wait(bars + 8 * s, (t / kWgStages) & 1);  // the tile has landed
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kWgMaxD / 16; ++ks) {
+      if (ks < nk) {
+        const unsigned bt = ring_s + (s * panels + (ks >> 2)) * panel_rows + (ks & 3) * 32;
+        wgmma_n128<TH>(acc, afrag[ks], sw128_desc(bt), ks > 0);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    mbar_arrive(bars + 8 * (kWgStages + s));  // the slot may be refilled
+    const int tile0 = r_begin + t * kWgTile;
+    select_tile(acc, st, buf0, buf1, reg, R, k, q, tile0 + 2 * q,
+                mask_pad && tile0 == 0 ? 1 : 0,  // PAD: item 0
+                min(kWgTile, r_end - tile0));    // past the range: zero rows
+  }
+  quad_keep(buf0, buf1, st, k, q);
+  const int b = b0 + row0 + g;
+  quad_write(buf0, st.ns0, st.tau0, b, k, q, lists, bounds, maxes, live0);
+  quad_write(buf1, st.ns1, st.tau1, b + 8, k, q, lists, bounds, maxes, live1);
+}
+
 // One user's merge by a team of TEAM threads (thread tt of it): the k =
 // min(k', n) best of the user's S lists (n entries ents, in item order;
 // their keys also in copy where that is not null), sorted, into out_s /
@@ -1549,6 +2097,88 @@ cudaError_t launch_mma_kernel(const ScoreArgs& a) {
   return cudaGetLastError();
 }
 
+// The Hopper range kernel's tensor map of the table: encoded once per
+// (pointer, rows, d, type, device) through the CUDA driver's entry point (no
+// link against libcuda) and kept; null where the CUDA driver refuses it.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+struct TableMap {
+  const void* ptr;
+  int rows, d, type, dev;
+  CUtensorMap map;
+};
+
+const CUtensorMap* table_map(const void* T, int rows, int d, int type) {
+  constexpr int kSlots = 8;
+  static TableMap slots[kSlots];
+  static int used = 0;
+  static int next = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return nullptr;
+  for (int i = 0; i < used; ++i) {
+    const TableMap& m = slots[i];
+    if (m.ptr == T && m.rows == rows && m.d == d && m.type == type && m.dev == dev) return &m.map;
+  }
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return nullptr;
+  TableMap& m = slots[next];
+  next = (next + 1) % kSlots;
+  used = used < kSlots ? used + 1 : kSlots;
+  m.ptr = nullptr;
+  // rows of d elements, 2d bytes apart; a box is kWgTile rows x kPanel
+  // elements (128 bytes, the 128-byte swizzle's span)
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {kPanel, kWgTile};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(
+      &m.map, type == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
+      const_cast<void*>(T), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return nullptr;
+  m.ptr = T;
+  m.rows = rows;
+  m.d = d;
+  m.type = type;
+  m.dev = dev;
+  return &m.map;
+}
+
+template <typename TH>
+cudaError_t launch_wgmma_kernel(const ScoreArgs& a, int t_type) {
+  const CUtensorMap* map = table_map(a.T, a.I, a.d, t_type);
+  if (map == nullptr) return cudaErrorNotSupported;
+  const cudaError_t err = set_smem<score_select_wgmma_kernel<TH>>(a.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.B + kWgUsers - 1) / kWgUsers, a.grid.y);
+  score_select_wgmma_kernel<TH><<<grid, kWgThreads, a.smem, a.st>>>(
+      *map, static_cast<const TH*>(a.U), a.lists, a.bounds, a.maxes, a.counters, a.B, a.I, a.d,
+      a.k, a.chunk, a.cpb, a.mask_pad);
+  return cudaGetLastError();
+}
+
 // U of type TU, T of type TT: the tensor cores for one half type on both
 // sides, else the CUDA cores.
 template <typename TU, typename TT>
@@ -1623,7 +2253,7 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
                       int B, int I, int d, int k, int chunk, int S, int cpb, int n, int Kp,
                       int team, int keys_in_smem, int parts, int vec, long long smem1,
                       long long smem2, int col_offset, int mask_pad, int u_type, int t_type,
-                      void* stream) {
+                      int wgmma, void* stream) {
   if (u_type < kF32 || u_type > kF16 || t_type < kF32 || t_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool mma = u_type == t_type && t_type != kF32;
@@ -1631,13 +2261,20 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
   // per range of cpb chunks; otherwise one list per chunk
   if (cpb < 1 || (cpb > 1 && (!mma || k > kRangeMaxK || S < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the Hopper range kernel: range mode with TMA's 16-byte rows and
+  // addresses, at a depth its layout holds
+  if (wgmma && (cpb < 2 || (d & 7) != 0 || d > kWgMaxD ||
+                (reinterpret_cast<uintptr_t>(T) & 15) != 0 ||
+                (reinterpret_cast<uintptr_t>(U) & 15) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int lists_per_user = (S + cpb - 1) / cpb;
   const int lmax = cpb > 1 ? k : list_len(k, chunk);
   const int last = I - (S - 1) * chunk;
   if (B <= 0 || I <= 0 || d <= 0 || k <= 0 || chunk <= 0 || chunk % kBN != 0 ||
       chunk > kMaxChunk || S <= 0 || S > kMaxSplits || last <= 0 || last > chunk ||
       n != (cpb > 1 ? lists_per_user * k : (S - 1) * lmax + (lmax < last ? lmax : last)) ||
-      Kp < (k < n ? k : n) || smem1 != fused_topk_smem_bytes(d, chunk, u_type, t_type))
+      Kp < (k < n ? k : n) ||
+      smem1 != (wgmma ? wgmma_smem_bytes(d) : fused_topk_smem_bytes(d, chunk, u_type, t_type)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the split merge: one block team, its sort within kCandCap, blocks within the grid
   if (parts < 0 || (parts > 0 && (team != kThreads || keys_in_smem || Kp > kCandCap ||
@@ -1666,10 +2303,15 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
                        B, I, d, k, chunk, cpb, mask_pad, vec, dim3((B + kBM - 1) / kBM, L),
                        smem1, st};
   cudaError_t err;
-  switch (u_type) {
-    case kF32: err = launch_score_for<float>(t_type, args); break;
-    case kBF16: err = launch_score_for<__nv_bfloat16>(t_type, args); break;
-    default: err = launch_score_for<__half>(t_type, args); break;
+  if (wgmma) {
+    err = t_type == kBF16 ? launch_wgmma_kernel<__nv_bfloat16>(args, t_type)
+                          : launch_wgmma_kernel<__half>(args, t_type);
+  } else {
+    switch (u_type) {
+      case kF32: err = launch_score_for<float>(t_type, args); break;
+      case kBF16: err = launch_score_for<__nv_bfloat16>(t_type, args); break;
+      default: err = launch_score_for<__half>(t_type, args); break;
+    }
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 

@@ -10,8 +10,10 @@ ascending), with item 0 ([PAD]) never selected and a slot without an item
 holding (−inf, 0). A half-precision table is read as it is stored (the
 wrapper makes no float32 copy of it). The products of half values are exact
 in float32, as under the JAX call's ``preferred_element_type``: users and
-table of one half type go through the tensor cores (``mma.sync``), every
-other pairing through float32 FMA on the widened values. float64 and
+table of one half type go through the tensor cores (``wgmma`` with TMA for
+k' <= 32 over many chunks where the table's rows are whole 16-byte units,
+``mma.sync`` otherwise; ``score_path``), every other pairing through
+float32 FMA on the widened values. float64 and
 integer tensors raise ``TypeError`` naming the dtype (the JAX package,
 without x64, never holds a float64 array).
 
@@ -81,6 +83,12 @@ RANGE_MAX_K = 32  # kRangeMaxK
 # kMergeStaticSmem: the merge kernel's static shared memory, at most; CUDA
 # counts it against the opt-in limit beside the dynamic bytes
 MERGE_STATIC_SMEM = 256
+# the Hopper range kernel (score_select_wgmma_kernel: TMA and wgmma), which
+# takes range mode's calls where TMA can read the table: users per block
+# (kWgUsers: two warpgroups of 64), items per T tile (kWgTile), tiles in
+# flight (kWgStages), the depth its layout holds (kWgMaxD: two 64-element
+# panels), a user's words of top-k' set and candidates (kCandWords)
+WG_USERS, WG_TILE, WG_STAGES, WGMMA_MAX_D, CAND_WORDS = 128, 128, 5, 128, 64
 
 launches = 0
 _LIB = None
@@ -135,7 +143,7 @@ def _lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         _LIB = lib
     return _LIB
@@ -174,6 +182,16 @@ def smem_bytes(d, chunk, esize=4, mma=False):
     return 4 * BM * (dpad + 4) + esize * STAGES * BN * T_STRIDE[esize] + keys
 
 
+def wgmma_smem_bytes(d):
+    """Dynamic shared memory of one block of the Hopper range kernel
+    (``wgmma_smem_bytes`` in the CUDA source): 1,024 bytes of alignment, the
+    ring's panels of 128-byte rows (ceil(d / 64) of them for each of
+    kWgStages tiles of 128 items), each user's buffer of 64 words (its
+    top-k' set and candidates), the ring's barriers."""
+    panels = _ceil_div(d, 64)
+    return 1024 + panels * 128 * WG_STAGES * WG_TILE + 8 * WG_USERS * CAND_WORDS + 16 * WG_STAGES
+
+
 class MergePlan(NamedTuple):
     """The merge kernel: ``n`` list entries per user, the winners sorted in
     ``kp`` slots (min(k', I) rounded up to a power of two, at least one per
@@ -208,6 +226,29 @@ def chunks_per_block(n_users, top_k, plan, n_sm, mma):
     ranges = max(1, n_sm // _ceil_div(n_users, BM))
     cpb = _ceil_div(plan.splits, ranges)
     return cpb if cpb >= 2 else 1
+
+
+def score_path(n_users, d, top_k, plan, smem_limit, n_sm, mma, aligned):
+    """The score + select kernel a call takes: ``"fma"`` (the CUDA cores:
+    any pairing with float32, or mixed half types), ``"wgmma"`` (the Hopper
+    range kernel: range mode's calls whose table TMA reads, rows of whole
+    16-byte units (d % 8 == 0), both tensors 16-byte aligned (``aligned``),
+    d <= WGMMA_MAX_D) or ``"mma"`` (the tensor-core kernel: every other
+    same-type half call, in chunk or range mode)."""
+    if not mma:
+        return "fma"
+    if (aligned and d % 8 == 0 and d <= WGMMA_MAX_D and wgmma_smem_bytes(d) <= smem_limit
+            and chunks_per_block(n_users, top_k, plan, n_sm, mma) > 1):
+        return "wgmma"
+    return "mma"
+
+
+def wgmma_chunks_per_block(n_users, plan, n_sm):
+    """Chunks a block of the Hopper range kernel walks: enough that its
+    grid (ceil(B / WG_USERS) user blocks by ranges) is one wave of ``n_sm``
+    blocks, at least 2 (a range)."""
+    ranges = max(1, n_sm // _ceil_div(n_users, WG_USERS))
+    return max(2, _ceil_div(plan.splits, ranges))
 
 
 def merge_plan(n_users, n_items, top_k, plan, smem_limit, n_sm, cpb=1):
@@ -318,12 +359,13 @@ def fused_topk_scores_reference(user_emb, item_table, top_k, col_offset=0, mask_
     return scores, idx
 
 
-def launch_args(device, B, I, d, top_k, u_dtype, t_dtype):
-    """For these shapes and types on this device, made once: the scratch's
-    8-byte words, the launch's shape arguments before ``vec`` and its two
-    shared memory sizes after it (the wrapper's host time is part of every
-    call)."""
-    key = (device.index, B, I, d, top_k, u_dtype, t_dtype)
+def launch_args(device, B, I, d, top_k, u_dtype, t_dtype, aligned=True):
+    """For these shapes and types on this device (and users and table
+    16-byte ``aligned`` or not), made once: the scratch's 8-byte words, the
+    launch's shape arguments before ``vec``, its two shared memory sizes
+    after it, and the score kernel's path (``score_path``; the wrapper's
+    host time is part of every call)."""
+    key = (device.index, B, I, d, top_k, u_dtype, t_dtype, aligned)
     args = _LAUNCH_ARGS.get(key)
     if args is None:
         smem_limit = _lib().fused_topk_max_smem()
@@ -331,34 +373,47 @@ def launch_args(device, B, I, d, top_k, u_dtype, t_dtype):
         esize = torch.empty((), dtype=t_dtype).element_size()
         mma = uses_tensor_cores(u_dtype, t_dtype)
         plan = launch_plan(B, I, d, smem_limit, n_sm, esize, mma)
-        cpb = chunks_per_block(B, top_k, plan, n_sm, mma)
+        path = score_path(B, d, top_k, plan, smem_limit, n_sm, mma, aligned)
+        if path == "wgmma":
+            cpb, smem = wgmma_chunks_per_block(B, plan, n_sm), wgmma_smem_bytes(d)
+        else:
+            cpb, smem = chunks_per_block(B, top_k, plan, n_sm, mma), plan.smem
         merge = merge_plan(B, I, top_k, plan, smem_limit, n_sm, cpb)
         shape = (B, I, d, top_k, plan.chunk, plan.splits, cpb, merge.n, merge.kp, merge.team,
                  int(merge.keys_in_smem), merge.parts)
         args = _LAUNCH_ARGS[key] = (scratch_words(B, top_k, plan, merge, cpb), shape,
-                                    (plan.smem, merge.smem))
+                                    (smem, merge.smem), path)
     return args
 
 
-@tracing.traced("fused_topk.launch")
 def _launch(user_emb, item_table, out_s, out_i, top_k, col_offset, mask_pad):
-    (B, d), device = user_emb.shape, user_emb.device
-    u_dtype, t_dtype = user_emb.dtype, item_table.dtype
-    words, shape, smem = launch_args(device, B, item_table.shape[0], d, top_k, u_dtype, t_dtype)
-    scratch = torch.empty(words, dtype=torch.int64, device=device)
-    u, t = user_emb.data_ptr(), item_table.data_ptr()
-    # 16-byte copies of T, and of U where it is read by cp.async: f32 users,
-    # and users of the tensor-core path (half users of the CUDA-core path are
-    # read by plain loads)
-    u_plain = u_dtype != torch.float32 and not uses_tensor_cores(u_dtype, t_dtype)
-    vec = int(d % (16 // item_table.element_size()) == 0 and t % 16 == 0
-              and (u_plain or u % 16 == 0))
-    # the raw handle of the current stream, without building a torch.cuda.Stream
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    return _lib().fused_topk_launch(
-        u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem,
-        int(col_offset), int(mask_pad), DTYPE_CODES[u_dtype], DTYPE_CODES[t_dtype], stream,
-    )
+    """The C call and its scratch: the span ``fused_topk.launch`` with the
+    attr ``path``; the counter ``fused_topk.wgmma`` counts the calls of the
+    Hopper range kernel."""
+    with tracing.span("fused_topk.launch") as sp:
+        (B, d), device = user_emb.shape, user_emb.device
+        u_dtype, t_dtype = user_emb.dtype, item_table.dtype
+        u, t = user_emb.data_ptr(), item_table.data_ptr()
+        words, shape, smem, path = launch_args(device, B, item_table.shape[0], d, top_k,
+                                               u_dtype, t_dtype, u % 16 == 0 and t % 16 == 0)
+        if sp:
+            sp.set("path", path)
+        if path == "wgmma":
+            tracing.count("fused_topk.wgmma")
+        scratch = torch.empty(words, dtype=torch.int64, device=device)
+        # 16-byte copies of T, and of U where it is read by cp.async: f32
+        # users, and users of the tensor-core path (half users of the
+        # CUDA-core path are read by plain loads)
+        u_plain = u_dtype != torch.float32 and not uses_tensor_cores(u_dtype, t_dtype)
+        vec = int(d % (16 // item_table.element_size()) == 0 and t % 16 == 0
+                  and (u_plain or u % 16 == 0))
+        # the raw handle of the current stream, without building a torch.cuda.Stream
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
+        return _lib().fused_topk_launch(
+            u, t, scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), *shape, vec, *smem,
+            int(col_offset), int(mask_pad), DTYPE_CODES[u_dtype], DTYPE_CODES[t_dtype],
+            int(path == "wgmma"), stream,
+        )
 
 
 def fused_topk_scores(user_emb, item_table, top_k, col_offset=0, mask_pad=True):

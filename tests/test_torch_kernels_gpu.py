@@ -215,6 +215,143 @@ def test_fused_topk_gaussian_within_the_near_tie_rule(card, B, I, d, dtype):
     assert rise - scratch < 4 * T.numel()
 
 
+_WG_TABLES = {}
+
+
+def _wg_table(card, dtype, I, d=128):
+    """A table of small integers made on the card, kept across the Hopper
+    range kernel's tests (a 2M-row table takes a while on the host)."""
+    key = (dtype, I, d)
+    if key not in _WG_TABLES:
+        _WG_TABLES.clear()
+        gen = torch.Generator(device=card).manual_seed(I + d)
+        _WG_TABLES[key] = torch.randint(-2, 3, (I, d), generator=gen, device=card).to(dtype)
+    return _WG_TABLES[key]
+
+
+def _wg_check(U, T, k, **kw):
+    """The call takes the Hopper range kernel and equals the plain version
+    slot for slot."""
+    path = fused_topk.launch_args(U.device, U.shape[0], T.shape[0], U.shape[1], k, U.dtype,
+                                  T.dtype, U.data_ptr() % 16 == 0 and T.data_ptr() % 16 == 0)[3]
+    assert path == "wgmma"
+    before = fused_topk.launches
+    s, i = fused_topk.fused_topk_scores(U, T, k, **kw)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    s_ref, i_ref = fused_topk.fused_topk_scores_reference(U, T, k, **kw)
+    assert torch.equal(i, i_ref)
+    assert torch.equal(s, s_ref)
+    return s, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("I", [65537, 2097153])
+@pytest.mark.parametrize("k", [1, 10, 32])
+@pytest.mark.parametrize("B", [1, 64, 127, 128, 129, 1000, 1024])
+def test_fused_topk_wgmma_matches_plain(card, B, I, k, dtype):
+    """The Hopper range kernel (TMA + wgmma, selection in registers) on
+    small-integer tables at d 128: every score is exact, so it equals the
+    plain version slot for slot, ties by item index included, for B across
+    a warp, a warpgroup and a block of users (1 to 1,024), one range of two
+    256-item chunks a block (I 65,537 at B 1) up to 257 chunks of 512 (the
+    catalog at B 1,024, with a last chunk of one item), and k' 1 to 32."""
+    T = _wg_table(card, dtype, I)
+    gen = torch.Generator(device=card).manual_seed(B * 100 + k)
+    U = torch.randint(-2, 3, (B, 128), generator=gen, device=card).to(dtype)
+    _wg_check(U, T, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("k", [10, 32])
+def test_fused_topk_wgmma_ties_across_boundaries(card, dtype, k):
+    """The item-ascending tie rule across tiles, warpgroups and ranges: a
+    constant table (every score equal: each range keeps its first k' items,
+    the merge the catalog's first k', PAD masked) and a tie-heavy one
+    (values in {-1, 0, 1}, every other row zero), at the catalog's 2,097,153
+    rows for 129 users (two blocks, both warpgroups of the first)."""
+    U = torch.ones((129, 128), dtype=dtype, device=card)
+    T = torch.ones((2097153, 128), dtype=dtype, device=card)
+    s, i = _wg_check(U, T, k)
+    assert torch.equal(i.cpu(), torch.arange(1, k + 1, dtype=torch.int32).expand(129, k))
+    del T
+    gen = torch.Generator(device=card).manual_seed(6)
+    U = torch.randint(-1, 2, (129, 128), generator=gen, device=card).to(dtype)
+    T = torch.randint(-1, 2, (2097153, 128), generator=gen, device=card).to(dtype)
+    T[1::2] = 0
+    _wg_check(U, T, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("B,I,d,k,col0", [
+    (129, 1048576, 64, 10, 5000),       # a shard of 1M rows, one 64-element panel
+    (1024, 2097152, 128, 32, 2097152),  # the second half of a 4M-row catalog
+])
+def test_fused_topk_wgmma_shard_mode(card, dtype, B, I, d, k, col0):
+    """The shard mode through the Hopper range kernel: indices offset by
+    ``col_offset``, row 0 selectable. Users of values in {0, 1, 2} against a
+    row 0 of 2s: row 0 scores highest (or ties first) for every user."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    U = torch.randint(0, 3, (B, d), generator=gen, device=card).to(dtype)
+    T = torch.randint(-2, 3, (I, d), generator=gen, device=card).to(dtype)
+    T[0] = 2
+    s, i = _wg_check(U, T, k, col_offset=col0, mask_pad=False)
+    assert bool((i[:, 0] == col0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,offset", [
+    (torch.float16, 30, 0),     # rows of 60 bytes: not whole 16-byte units
+    (torch.bfloat16, 136, 0),   # past the Hopper layout's two panels
+    (torch.bfloat16, 128, 1),   # users one element off 16 bytes
+], ids=["f16-d30", "bf16-d136", "bf16-unaligned"])
+def test_fused_topk_range_mode_left_to_mma(card, dtype, d, offset):
+    """Range mode's calls that TMA cannot read stay on the tensor-core
+    kernel (``mma.sync``, a range of chunks a block) and equal the plain
+    version slot for slot on small-integer inputs."""
+    B, I, k = 1024, 524288, 10
+    gen = torch.Generator(device=card).manual_seed(d + offset)
+    U = torch.randint(-2, 3, (B * d + offset,), generator=gen, device=card).to(dtype)
+    U = U[offset:].view(B, d)
+    T = torch.randint(-2, 3, (I, d), generator=gen, device=card).to(dtype)
+    _, shape, _, path = fused_topk.launch_args(
+        card, B, I, d, k, dtype, dtype, U.data_ptr() % 16 == 0 and T.data_ptr() % 16 == 0)
+    assert path == "mma" and shape[6] > 1  # the tensor-core kernel's range mode
+    _check_slot_for_slot(U, T, k)
+
+
+@pytest.mark.gpu
+def test_fused_topk_wgmma_kernels_by_name(card):
+    """One catalog call (bf16, B 1,024, k' 10) launches two device kernels,
+    the score kernel (its name holds ``score_select``) and the merge: the
+    fragments that ``fused_topk_roofline`` and ``chip_smoke.kernel_times_us``
+    read. Under tracing, the call's ``fused_topk.launch`` span carries the
+    path and the counter ``fused_topk.wgmma`` counts it."""
+    from recbole_fairrec_tpu_torch.utils import tracing
+
+    gen = torch.Generator(device=card).manual_seed(8)
+    T = torch.randn((2097152, 128), generator=gen, device=card, dtype=torch.bfloat16)
+    U = torch.randn((1024, 128), generator=gen, device=card, dtype=torch.bfloat16)
+    times = chip_smoke._device_profile(lambda: fused_topk.fused_topk_scores(U, T, 10), calls=2)
+    assert len(times) == 2
+    assert all("score_select" in name or "merge" in name for name in times), times
+    assert any("score_select_wgmma" in name for name in times), times
+    tracing.reset()
+    tracing.enable()
+    try:
+        fused_topk.fused_topk_scores(U, T, 10)
+        fused_topk.fused_topk_scores(U.float(), T, 10)
+    finally:
+        tracing.disable()
+    paths = [r.attrs["path"] for r in tracing.records() if r.name == "fused_topk.launch"]
+    assert paths == ["wgmma", "fma"]
+    assert tracing.counters()["fused_topk.wgmma"] == 1
+    tracing.reset()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_fused_topk_refuses_other_dtypes_by_name_on_card(card, dtype):

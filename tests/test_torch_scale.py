@@ -223,11 +223,13 @@ def test_launch_plan_at_catalog_scale(B, dtype):
     memory, so the split merge reads them (each at most once) in 5 blocks a
     user at B 128 (640 blocks, at least 4 per SM) and one at B 1024.
 
-    bfloat16 and float16 (the tensor cores): range mode, a score block over
-    63 chunks at B 128 and 513 at B 1024 (one wave: 2 x 66 and 16 x 8
-    blocks), one list of k' per range (66 and 8 a user), taken by the split
-    merge because a warp per user would leave SMs idle: 5 blocks a user at
-    B 128 (640 blocks), one at B 1024."""
+    bfloat16 and float16 (the tensor cores): range mode (the tensor-core
+    kernel would walk 63 chunks a block at B 128 and 513 at B 1024), taken
+    by the Hopper range kernel: a block of 128 users over 32 chunks at B 128
+    and 257 at B 1024 (one wave: 1 x 129 and 8 x 16 blocks), one list of k'
+    per range (129 and 16 a user), taken by the split merge because a warp
+    per user would leave SMs idle: 5 blocks a user at B 128 (640 blocks),
+    one at B 1024."""
     I, d = 2 * 1024 * 1024 + 1, 128
     esize = torch.empty((), dtype=dtype).element_size()
     mma = fused_topk.uses_tensor_cores(dtype, dtype)
@@ -251,10 +253,15 @@ def test_launch_plan_at_catalog_scale(B, dtype):
         assert fused_topk.scratch_words(B, K, plan, merge) == \
             B * 4097 * 42 + 2 * (B * 4097 // 2) + B * (fused_topk.CAND_CAP + 1)
         return
-    cpb_want, lists = {128: (63, 66), 1024: (513, 8)}[B]
+    assert cpb == {128: 63, 1024: 513}[B]  # range mode
+    assert fused_topk.score_path(B, d, K, plan, H100_SMEM, H100_SMS, mma, True) == "wgmma"
+    assert fused_topk.wgmma_smem_bytes(d) == 230480 <= H100_SMEM
+    cpb_want, lists = {128: (32, 129), 1024: (257, 16)}[B]
+    cpb = fused_topk.wgmma_chunks_per_block(B, plan, H100_SMS)
     assert cpb == cpb_want and -(-4097 // cpb) == lists
-    user_blocks = -(-B // fused_topk.BM)
-    assert H100_SMS - user_blocks < user_blocks * lists <= H100_SMS  # one wave
+    merge = fused_topk.merge_plan(B, I, K, plan, H100_SMEM, H100_SMS, cpb)
+    user_blocks = -(-B // fused_topk.WG_USERS)
+    assert H100_SMS - 4 <= user_blocks * lists <= H100_SMS  # one wave
     assert merge == (lists * K, 256, fused_topk.MERGE_THREADS, False,
                      8 * fused_topk.CAND_CAP, parts)
     assert fused_topk.scratch_words(B, K, plan, merge, cpb) == \
@@ -297,6 +304,64 @@ def test_plan_bytes_match_the_cuda_layout():
     assert int(constants["kBKM"]) == fused_topk.BK_MMA
     assert int(constants["kMergeStaticSmem"]) == fused_topk.MERGE_STATIC_SMEM
     assert int(constants["kMaxChunk"]) == fused_topk.MAX_CHUNK
+
+
+def _path(B, I, d, k, dtype=torch.bfloat16, t_dtype=None, aligned=True):
+    t_dtype = dtype if t_dtype is None else t_dtype
+    esize = torch.empty((), dtype=t_dtype).element_size()
+    mma = fused_topk.uses_tensor_cores(dtype, t_dtype)
+    plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS, esize, mma)
+    return fused_topk.score_path(B, d, k, plan, H100_SMEM, H100_SMS, mma, aligned)
+
+
+@pytest.mark.parametrize("case,want", [
+    ((128, 2097153, 128, 10, torch.bfloat16), "wgmma"),  # the catalog, both batch sizes
+    ((1024, 2097153, 128, 10, torch.bfloat16), "wgmma"),
+    ((128, 2097153, 128, 10, torch.float16), "wgmma"),
+    ((1024, 2097153, 128, 10, torch.float16), "wgmma"),
+    ((1024, 2097153, 128, 1, torch.bfloat16), "wgmma"),   # k' 1 and 32: still range mode
+    ((1024, 2097153, 128, 32, torch.float16), "wgmma"),
+    ((128, 1048576, 8, 10, torch.bfloat16), "wgmma"),     # one 16-byte unit a row
+    ((128, 2097153, 128, 10, torch.float32), "fma"),      # f32: exact FMA on the CUDA cores
+    ((128, 2097153, 128, 10, torch.bfloat16, torch.float16), "fma"),  # mixed halves
+    ((1024, 2097153, 128, 33, torch.bfloat16), "mma"),    # k' > 32: a list per chunk
+    ((128, 2097153, 128, 173, torch.float16), "mma"),
+    ((1024, 524288, 30, 10, torch.float16), "mma"),       # d 30: rows not whole 16-byte units
+    ((1024, 524288, 136, 10, torch.bfloat16), "mma"),     # past the layout's two panels
+    ((64, 4097, 128, 10, torch.bfloat16), "mma"),         # two chunks: no range mode
+])
+def test_score_path_choice(case, want):
+    """The score kernel a call takes, from its dtypes, k', d and chunks: the
+    Hopper range kernel for range mode's calls that TMA reads (the catalog's
+    bf16 and f16 calls at k' <= 32), the tensor-core kernel for the other
+    same-type half calls, the CUDA cores for every call with float32 or mixed
+    half types."""
+    assert _path(*case) == want
+
+
+def test_score_path_needs_aligned_tensors():
+    """TMA reads 16-byte aligned rows: an unaligned user or table pointer
+    keeps range mode on the tensor-core kernel."""
+    assert _path(1024, 2097153, 128, 10, aligned=False) == "mma"
+
+
+def test_wgmma_plan_bytes_match_the_cuda_layout():
+    """The Hopper range kernel's block layout: the CUDA source pins
+    ``wgmma_smem_bytes`` with static_asserts and the launch refuses other
+    bytes; the Python mirror gives the same, from the same constants."""
+    with open(fused_topk.SOURCE, encoding="utf-8") as f:
+        src = f.read()
+    pins = re.findall(r"static_assert\(wgmma_smem_bytes\((\d+)\) == (\d+)", src)
+    assert {int(d) for d, _ in pins} == {8, 64, 128}
+    for d, nbytes in pins:
+        assert fused_topk.wgmma_smem_bytes(int(d)) == int(nbytes)
+    constants = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(constants["kWgUsers"]) == fused_topk.WG_USERS
+    assert int(constants["kWgTile"]) == fused_topk.WG_TILE
+    assert int(constants["kWgStages"]) == fused_topk.WG_STAGES
+    assert int(constants["kWgMaxD"]) == fused_topk.WGMMA_MAX_D
+    assert int(constants["kCandWords"]) == fused_topk.CAND_WORDS
+    assert fused_topk.wgmma_smem_bytes(fused_topk.WGMMA_MAX_D) <= H100_SMEM
 
 
 # ------------------------------------------------------- the scale step

@@ -177,7 +177,7 @@ def test_kernel_launch_is_a_span(monkeypatch):
             return 0
 
     monkeypatch.setattr(fused_topk, "_lib", Lib)
-    monkeypatch.setattr(fused_topk, "launch_args", lambda *a: (4, (0,) * 12, (0, 0)))
+    monkeypatch.setattr(fused_topk, "launch_args", lambda *a: (4, (0,) * 12, (0, 0), "wgmma"))
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0, raising=False)
     users, items = torch.zeros(2, 8), torch.zeros(16, 8)
     out_s, out_i = torch.empty(2, 3), torch.empty(2, 3, dtype=torch.int32)
@@ -186,6 +186,8 @@ def test_kernel_launch_is_a_span(monkeypatch):
         assert fused_topk._launch(users, items, out_s, out_i, 3, 0, True) == 0
     outer, launch = tracing.records()
     assert launch.name == "fused_topk.launch" and launch.parent == 0 and launch.root == 0
+    assert launch.attrs == {"path": "wgmma"}
+    assert tracing.counters()["fused_topk.wgmma"] == 1
 
 
 def _annotation_offsets(trainer, train, valid):
