@@ -16,7 +16,9 @@ Counterpart of ``recbole_fairrec_tpu/models/fairgo_base.py``:
   CE, a quirk of the reference kept on purpose;
 * model loss = MSE, minus ``fair_weight`` times the discriminator loss in
   finetune;
-* predictions clamped to [0, max_rating] / max_rating.
+* predictions clamped to [0, max_rating] / max_rating;
+* traced (``utils/tracing.py``): ``fairgo.filters`` around the filters over
+  the table, ``fairgo.dis_loss`` around the discriminator loss.
 
 Parameters follow the JAX package's tree: ``user_embedding`` /
 ``item_embedding`` (N(0, 1), PAD row 0, or the dataset's preloaded
@@ -37,7 +39,7 @@ import torch
 from torch import nn
 
 from ..ops.spmm import build_bipartite_norm_coo, coo_to_dense, propagate
-from ..utils import InputType
+from ..utils import InputType, tracing
 from .base import FairRecommender, batch_weights, wmean
 from .layers import MLP, Linear, apply_activation, init_embedding
 from .pfcn_base import _weighted_bce, _weighted_ce
@@ -157,11 +159,16 @@ class FairGoBase(FairRecommender):
         """(user table, item table): the backbone's, filtered in finetune."""
         all_embedding = self._ego_embeddings(train)
         if self.train_stage == "finetune":
-            temp = None
-            for sst in sst_list or self.sst_attrs:
-                out = self.filters[sst](all_embedding, activation=self.act)
-                temp = out if temp is None else temp + out
-            all_embedding = temp / len(self.sst_attrs)
+            with tracing.span("fairgo.filters") as sp:
+                subset = sst_list or self.sst_attrs
+                if sp:
+                    sp.set("filters", len(subset))
+                    sp.set("rows", all_embedding.shape[0])
+                temp = None
+                for sst in subset:
+                    out = self.filters[sst](all_embedding, activation=self.act)
+                    temp = out if temp is None else temp + out
+                all_embedding = temp / len(self.sst_attrs)
         return all_embedding[: self.n_users], all_embedding[self.n_users:]
 
     def _aggr(self, hops):
@@ -190,6 +197,7 @@ class FairGoBase(FairRecommender):
         user_all, item_all = self.forward(sst_list, train=True)
         return self._dis_loss(user_all, item_all, batch, sst_list, batch_weights(batch))
 
+    @tracing.traced("fairgo.dis_loss")
     def _dis_loss(self, user_all, item_all, batch, sst_list, w):
         """Node + local discriminator losses over ``sst_list`` (every
         attribute when empty)."""

@@ -28,6 +28,8 @@ import contextlib
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 def spmm_coo(rows, cols, vals, dense, n_rows):
     """(sparse COO ``[n_rows, n]``) @ ``dense [n, d]`` → ``[n_rows, d]``."""
@@ -87,10 +89,19 @@ class _Propagate(torch.autograd.Function):
 
 def propagate(x, rows, cols, vals, n, dense=None):
     """One propagation hop, ``A @ x``: through ``dense`` (float32 or
-    bfloat16 ``[n, n]``) when given, else through the COO arrays."""
-    if dense is None:
-        return spmm_coo(rows, cols, vals, x, n)
-    return _Propagate.apply(dense, x.to(dense.dtype))
+    bfloat16 ``[n, n]``) when given, else through the COO arrays. Traced as
+    ``spmm.propagate`` (attrs ``path``, ``edges``, ``d``); the counter
+    ``spmm.edges`` adds the matrix's edges at every hop."""
+    edges = rows.shape[0]
+    tracing.count("spmm.edges", edges)
+    with tracing.span("spmm.propagate") as sp:
+        if sp:
+            sp.set("path", "coo" if dense is None else "dense")
+            sp.set("edges", edges)
+            sp.set("d", x.shape[1])
+        if dense is None:
+            return spmm_coo(rows, cols, vals, x, n)
+        return _Propagate.apply(dense, x.to(dense.dtype))
 
 
 def build_bipartite_norm_coo(rating_coo, n_users, n_items):
