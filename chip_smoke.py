@@ -80,9 +80,13 @@ Phases, each of which exits non-zero when it fails:
      the passes, both stages' evaluations and the checkpoints (no
      propagation matrix in them) read back to the same dict; a pretrain, a
      filter and a discriminator step on the card equal the CPU's; dense
-     propagation equals COO and bfloat16 stays within its bound; seconds
+     propagation equals the COO matrix's CSR form through its kernel (one
+     launch a hop) and bfloat16 stays within its bound; seconds
      per epoch, validation and test, the split of each step kind, and one
-     hop against its bound are printed;
+     hop against its bound are printed; a copy of each model on the COO
+     matrix takes a finetune cycle (1 filter + 5 discriminator steps;
+     FairGo_GCN a pretrain step first) with spmm_csr's launches counted
+     from 0: one a hop, forward or backward;
   9. resident: run_recbole of the training phase's BPR-MF with resident
      epochs (device_epoch_shuffle: the train table on the card, the
      shuffle and the negatives drawn there), 3 epochs, streaming validation
@@ -134,7 +138,13 @@ Phases, each of which exits non-zero when it fails:
      then the tensor-core path (bfloat16 and float16 users and tables) on
      the gaussian, k' 1, k' 4096, tie-heavy and d 30 inputs, and float16
      users over a bfloat16 table on the CUDA cores; with times, the bound
-     and the library yardstick.
+     and the library yardstick;
+ 14. graph: the CSR kernel at the FairGo cell's shapes (a Last.fm-360K-like
+     D⁻¹A made on the card: 651,938 rows, 29,369,508 entries, d 64): a
+     CsrHop forward over A and backward over Aᵀ against a float64 sum
+     within the float32 bound and bitwise repeatable, each timed beside
+     its bound (each source row read once), the plain version, cuSPARSE
+     and (forward) the COO hop it replaced; ``graph: hop`` lines.
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line
 ``{"ok": true, "device": {...}}``.
@@ -182,6 +192,13 @@ KERNELS = [
         "module": "ops.fused_topk",
         "source": f"{PACKAGE}/csrc/fused_topk.cu",
         "replaces": "recbole_fairrec_tpu/ops/pallas/fused_topk.py:134",
+    },
+    {
+        "name": "spmm_csr",
+        "route": "cuda",
+        "module": "ops.spmm_csr",
+        "source": f"{PACKAGE}/csrc/spmm_csr.cu",
+        "replaces": None,  # the JAX package's COO hop is a scatter-add under XLA
     },
 ]
 
@@ -319,9 +336,8 @@ def serve(data_root, work_dir, extra_cfg=None):
         if trainer2._last_eval_path != "streaming-kernel":
             fail(f"evaluate({name}) took the path {trainer2._last_eval_path!r}")
     launches = {name: mod.launches for name, mod in modules.items()}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"the serving path launched the kernel {name} no time")
+    if launches["fused_topk"] == 0:
+        fail("the serving path launched the kernel fused_topk no time")
 
     config2["streaming_eval"] = False
     dense = {}
@@ -522,15 +538,12 @@ def _bpr_run(data_root, work_dir, card, label, extra_cfg=None):
         _check_metrics(f"{label}: validation {epoch}", res)
         if path != "streaming-kernel":
             fail(f"{label}: validation {epoch} took the path {path!r}")
-        for name, count in n.items():
-            if count < 1:
-                fail(f"{label}: validation {epoch} launched the kernel {name} no time")
+        if n["fused_topk"] < 1:
+            fail(f"{label}: validation {epoch} launched the kernel fused_topk no time")
     if trainer._last_eval_path != "streaming-kernel":
         fail(f"{label}: the test evaluation took the path {trainer._last_eval_path!r}")
-    for name, count in launches.items():
-        in_valid = sum(n[name] for n in rec["valid_launches"])
-        if count - in_valid < 1:
-            fail(f"{label}: the test evaluation launched the kernel {name} no time")
+    if launches["fused_topk"] - sum(n["fused_topk"] for n in rec["valid_launches"]) < 1:
+        fail(f"{label}: the test evaluation launched the kernel fused_topk no time")
     if list(result["test_result"]) != ["none"]:
         fail(f"{label}: test_result keys {list(result['test_result'])}")
     _check_metrics(f"{label}: test", result["test_result"]["none"])
@@ -692,7 +705,8 @@ def _n_macro(trainer, loader):
 def adversarial(data_root, work_dir, card):
     """Phase 6: the adversarial main path (PFCN_PMF, sm over three
     attributes, 3 epochs) and the short runs of the other backbones. Returns
-    the launch counts by run and the kernel's rows on the new inputs."""
+    the launch counts by run (each by kernel) and the top-k kernel's rows on
+    the new inputs."""
     cfg = adversarial_config(data_root, work_dir)
     result, rec, launches, trainer = _adversarial_run(
         data_root, work_dir, "PFCN_PMF", None, "streaming-kernel")
@@ -724,7 +738,7 @@ def adversarial(data_root, work_dir, card):
     rows = [check_fused_topk(mod, U, T, k, "filtered-pmf", card)]
     time_adversarial_step_split(trainer2, train2, card)
 
-    runs = {"adversarial": launches["fused_topk"]}
+    runs = {"adversarial": launches}
     for model, extra, path, label in (
             ("PFCN_BiasedMF", {"filter_mode": "cm", "sst_attr_list": ["gender"]},
              "streaming-kernel", "biasedmf-d65"),
@@ -743,7 +757,7 @@ def adversarial(data_root, work_dir, card):
                             _n_macro(t2, te2))
             U, T, k = serving_inputs(t2, te2, tuple(extra["sst_attr_list"]))
             rows.append(check_fused_topk(mod, U, T, k, label, card))
-        runs[model] = slaunches["fused_topk"]
+        runs[model] = slaunches
         print(f"adversarial: {model} {extra['filter_mode']} {extra['sst_attr_list']}, 1 epoch: "
               f"run_recbole {srec['run_recbole_s']:.3f} s, epoch "
               f"{srec['train_epoch_s'][0]:.3f} s, validation {srec['valid_s'][0]:.3f} s, test "
@@ -1663,6 +1677,7 @@ FAIRGO_MODELS = ("FairGo_PMF", "FairGo_GCN")
 # epoch 0 of finetune runs both the filter and the discriminator pass
 FAIRGO_DEPTH = {"pretrain_epochs": 1, "epochs": 1}
 FAIRGO_SPLIT_STEPS = 40
+FAIRGO_DIS_STEPS = 5  # discriminator steps a finetune cycle, as the benchmark's cell runs them
 PEAK_BF16_FLOPS = 989e12  # bfloat16 (and float16) in the tensor cores, dense
 # bound of the bfloat16 hop's norm-relative gap from float32, ~2x the reading
 # of 1.0159e-3 (PERF.md §6, FairGo)
@@ -1898,7 +1913,8 @@ def check_fairgo_steps(trainer, train_data, cfg, model, atol=1e-5, loss_rtol=1e-
 
 def check_fairgo_propagation(trainer, train_data, cfg, model, card):
     """On one finetune batch of the read-back trainer (card): one hop through
-    the dense float32 matrix against the COO form, within the float32 bound
+    the dense float32 matrix against the COO matrix's CSR form (the kernel,
+    ``ops/spmm_csr.py``), within the float32 bound
     of each row's sum in another order (2 x degree x 2^-24 x sum |a x|);
     the discriminator loss of a ``dense_propagation: False`` model (the
     same weights) within 1e-5 (rel) of the dense model's; a
@@ -1911,6 +1927,7 @@ def check_fairgo_propagation(trainer, train_data, cfg, model, card):
     import torch
 
     from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
     from recbole_fairrec_tpu_torch.ops.spmm import propagate
     from recbole_fairrec_tpu_torch.utils import get_model
 
@@ -1926,7 +1943,10 @@ def check_fairgo_propagation(trainer, train_data, cfg, model, card):
     with torch.no_grad():
         x = torch.cat(m.forward(sst))
         dense_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n, dense=m.prop_dense)
-        coo_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n)
+        before = spmm_csr.launches
+        coo_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n, csr=m._csr("norm"))
+        if spmm_csr.launches != before + 1:
+            fail("fairgo propagation: the COO hop on the card did not take the CSR kernel")
         degree = torch.bincount(m.norm_rows, minlength=n).double()[:, None]
         bound = 2 * degree * 2.0 ** -24 * (m.prop_dense.abs() @ x.abs()).double()
         err = (dense_hop - coo_hop).abs().double()
@@ -1984,6 +2004,58 @@ def check_fairgo_propagation(trainer, train_data, cfg, model, card):
             not all(bool(torch.isfinite(g).all()) for g in grads.values()):
         fail(f"fairgo propagation: the bfloat16 filter step gives loss {loss}")
     print(f"fairgo: propagation {json.dumps(row)}", flush=True)
+
+
+def count_fairgo_csr_launches(trainer, train_data, cfg, model):
+    """A ``dense_propagation: False`` copy of the read-back model (the same
+    weights) on the card takes FairGo_GCN's one pretrain step, then one
+    finetune cycle (a filter step and ``FAIRGO_DIS_STEPS`` discriminator
+    steps) on the loader's first batch, with ``spmm_csr.launches`` set to 0 just
+    before: every hop is one launch of the CSR kernel, forward and
+    backward, so the count must be the GCN's convolutions twice (pretrain),
+    ``n_layers`` twice (the filter step) and ``n_layers`` a discriminator
+    step (the discriminators' gradients never reach back through the hops).
+    Returns the count."""
+    import torch
+
+    from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+    from recbole_fairrec_tpu_torch.utils import get_model
+
+    config = Config(model=model, dataset=ADV_DATASET,
+                    config_dict={**cfg, "dense_propagation": False})
+    coo = type(trainer)(config, get_model(model)(config, train_data.dataset))
+    coo.model.load_state_dict(trainer.model.state_dict())
+    _require_card_trainer(coo, f"fairgo {model} csr cycle", model)
+    m = coo.model
+    if any(name.endswith("_dense") for name in m._buffers):
+        fail(f"fairgo {model} csr cycle: the COO model holds a dense matrix")
+    sst = _fairgo_attrs(coo)
+    steps = [("filter", "calculate_loss", sst)] + \
+        [("dis", "calculate_dis_loss", sst)] * FAIRGO_DIS_STEPS
+    expected = (2 + FAIRGO_DIS_STEPS) * m.n_layers
+    if model == "FairGo_GCN":
+        steps.insert(0, ("pretrain", "calculate_loss", None))
+        expected += 2 * len(m.gcn.convs)
+    interaction = next(iter(train_data))
+    train_data.pr = 0
+    m.train()
+    spmm_csr.launches = 0
+    for tag, loss_name, subset in steps:
+        m.train_stage = "pretrain" if tag == "pretrain" else "finetune"
+        batch = coo._train_batch(interaction, m.loss_batch_fields(loss_name, subset))
+        loss = coo._train_step(batch, loss_name, subset, coo._tx_by_tag(tag))
+        if not math.isfinite(float(loss)):
+            fail(f"fairgo {model} csr cycle: the {tag} loss is not finite")
+    _sync()
+    launches = spmm_csr.launches
+    if launches != expected:
+        fail(f"fairgo {model} csr cycle: {launches} launches of spmm_csr, expected {expected}")
+    print(f"fairgo: {model} csr cycle {[s[0] for s in steps]}: spmm_csr launches {launches}",
+          flush=True)
+    del coo
+    torch.cuda.empty_cache()
+    return launches
 
 
 def time_fairgo_step_split(trainer, train_data, card, model, steps=FAIRGO_SPLIT_STEPS):
@@ -2071,8 +2143,10 @@ def fairgo(data_root, work_dir, card):
     checkpoints' contents, the checkpoints read back, one step of each kind
     on the card against the CPU, the propagation forms (FairGo_PMF) and the
     timings: seconds per pretrain epoch, finetune epoch, validation and
-    test, the split of each step kind, and one hop against its bound.
-    Returns the kernels' launch counts of its runs (FairGo launches none)."""
+    test, the split of each step kind, and one hop against its bound; then
+    a cycle of each model on the COO matrix's CSR path
+    (``count_fairgo_csr_launches``). Returns the kernels' launch counts: the
+    runs' (dense, none) and the cycles' (``spmm_csr``)."""
     import torch
 
     modules = {k["name"]: _kernel_module(k) for k in KERNELS}
@@ -2099,6 +2173,7 @@ def fairgo(data_root, work_dir, card):
                                  lambda: trainer2.evaluate(test2, load_best_model=False))
         del trainer
         check_fairgo_steps(trainer2, train2, cfg, model)
+        launches["spmm_csr"] += count_fairgo_csr_launches(trainer2, train2, cfg, model)
         if model == "FairGo_PMF":
             check_fairgo_propagation(trainer2, train2, cfg, model, card)
             hop_model = trainer2.model
@@ -2107,6 +2182,162 @@ def fairgo(data_root, work_dir, card):
         torch.cuda.empty_cache()
     time_fairgo_hop(hop_model, card)
     return launches
+
+
+# ------------------------------------------------- the graph hop at FairGo's scale
+
+# FairGo's Last.fm-360K graph (benchmark/configs/fairgo_pmf-lastfm360k.json)
+GRAPH_USERS, GRAPH_ARTISTS = 359_347, 292_589
+GRAPH_TRAIN_ROWS = 14_684_754  # 40 or 41 training artists a user
+GRAPH_POPULARITY = 0.65
+GRAPH_DIM = 64
+GRAPH_DRAWS = 96  # candidates a user, drawn with repeats, for 41 distinct artists
+GRAPH_CHUNK = 1 << 22  # entries of one slice of the float64 reference
+
+
+def lastfm_like_graph(seed=2020, device="cuda", users=GRAPH_USERS, artists=GRAPH_ARTISTS,
+                      train_rows=GRAPH_TRAIN_ROWS):
+    """D⁻¹A of a bipartite graph of the benchmark's FairGo shapes, made on
+    ``device`` from ``seed``: ``users`` users with ``train_rows // users``
+    or one more distinct artists each out of ``artists``, drawn with weights
+    ∝ rank^−0.65, ratings 1–5. Returns (rows, cols, vals) int64, int64,
+    float32, and the node count (PAD rows 0 of users and artists included,
+    empty)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    U, I = users, artists
+    low = train_rows // U
+    degree = torch.full((U,), low, dtype=torch.int64, device=device)
+    degree[torch.randperm(U, generator=gen, device=device)[: train_rows - low * U]] += 1
+    weights = torch.arange(1, I + 1, dtype=torch.float64, device=device) ** -GRAPH_POPULARITY
+    cdf = torch.cumsum(weights, 0) / weights.sum()
+    by_rank = torch.randperm(I, generator=gen, device=device) + 1
+    draws = torch.rand((U, GRAPH_DRAWS), generator=gen, device=device, dtype=torch.float64)
+    ranks = torch.searchsorted(cdf, draws).clamp_(max=I - 1)
+    ordered, where = torch.sort(ranks, dim=1, stable=True)
+    new = torch.ones_like(ordered, dtype=torch.bool)
+    new[:, 1:] = ordered[:, 1:] != ordered[:, :-1]
+    first = torch.empty_like(new).scatter_(1, where, new)
+    keep = first & (torch.cumsum(first, dim=1) <= degree[:, None])
+    if not bool((keep.sum(dim=1) == degree).all()):
+        fail("graph: a user drew too few distinct artists")
+    items = by_rank[ranks[keep]] + (U + 1)  # artist rows follow the user rows
+    users_of = torch.repeat_interleave(torch.arange(1, U + 1, device=device), degree)
+    ratings = torch.randint(1, 6, (users_of.numel(),), generator=gen, device=device).float()
+    n = U + I + 2
+    rows, cols = torch.cat([users_of, items]), torch.cat([items, users_of])
+    vals = torch.cat([ratings, ratings])
+    deg = torch.zeros(n, dtype=torch.float64, device=device).index_add_(0, rows, vals.double())
+    vals = (vals.double() / (deg[rows] + 1e-7)).float()
+    return rows, cols, vals, n
+
+
+def csr_sums_float64(csr, x, chunk=GRAPH_CHUNK):
+    """``A @ x`` and ``|A| @ |x|`` in float64 for an ``ops.spmm_csr.Csr``
+    ``A``, in slices of whole rows of about ``chunk`` entries (the plain
+    version's ``[E, d]`` float64 products would hold ~15 GB at a time)."""
+    import torch
+
+    rowptr = csr.rowptr.long()
+    n_rows = rowptr.numel() - 1
+    x64 = x.double()
+    exact = torch.zeros((n_rows, x.shape[1]), dtype=torch.float64, device=x.device)
+    magnitude = torch.zeros_like(exact)
+    starts = torch.arange(0, int(rowptr[-1]), chunk, device=rowptr.device)
+    cuts = sorted({0, n_rows, *torch.searchsorted(rowptr, starts).tolist()})
+    for r0, r1 in zip(cuts, cuts[1:]):
+        e0, e1 = int(rowptr[r0]), int(rowptr[r1])
+        local = torch.repeat_interleave(torch.arange(r1 - r0, device=x.device),
+                                        torch.diff(rowptr[r0:r1 + 1]))
+        gathered = x64[csr.cols[e0:e1].long()]
+        v = csr.vals[e0:e1].double()[:, None]
+        exact[r0:r1].index_add_(0, local, gathered * v)
+        magnitude[r0:r1].index_add_(0, local, gathered.abs_().mul_(v.abs()))
+    return exact, magnitude
+
+
+def graph_rows(card, **graph_args):
+    """The CSR kernel (``ops/spmm_csr.py``) at the FairGo cell's shapes
+    (``lastfm_like_graph``: 651,938 rows, 29,369,508 entries; d 64): one
+    ``CsrHop`` forward over A and its backward over Aᵀ (two launches), each
+    result within the float32 bound of its sums in another order (2 x
+    entries x 2^-24 x |A| |x|, against a float64 sum) and bitwise equal to
+    a second call; then each direction timed back to back (``ms``) beside
+    its bound (bytes: each entry's column and value, the row pointer, each
+    source row read once, each output row written once, at 3.35 TB/s;
+    ``all_gathers_ms`` reads every entry's row from memory instead), the
+    plain version (``plain_ms``), ``torch.sparse.mm`` on a CSR tensor
+    (cuSPARSE, ``library_ms``: a yardstick the port never calls), the COO
+    hop it replaced (forward) and the two CUDA kernels' device times.
+    Returns (the launches, the two rows)."""
+    import torch
+
+    from recbole_fairrec_tpu_torch.ops import spmm, spmm_csr
+
+    rows, cols, vals, n = lastfm_like_graph(**graph_args)
+    E, d = rows.numel(), GRAPH_DIM
+    _sync()
+    t0 = time.perf_counter()
+    pair = spmm_csr.csr_pair(rows, cols, vals, n)
+    _sync()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=rows.device).manual_seed(7)
+    x = torch.randn((n, d), generator=gen, device=rows.device)
+    grad = torch.randn((n, d), generator=gen, device=rows.device)
+    launches0 = spmm_csr.launches
+    leaf = x.clone().requires_grad_()
+    y = spmm_csr.CsrHop.apply(leaf, pair)
+    y.backward(grad)
+    if spmm_csr.launches != launches0 + 2:
+        fail(f"graph: a CsrHop forward and backward made {spmm_csr.launches - launches0} "
+             "launches, expected 2")
+    out = []
+    for direction, csr, inp, got in (("forward", pair.fwd, x, y.detach()),
+                                      ("backward", pair.bwd, grad, leaf.grad)):
+        exact, magnitude = csr_sums_float64(csr, inp)
+        entries = torch.diff(csr.rowptr).double()[:, None]
+        err = (got.double() - exact).abs()
+        of_bound = float((err / (2 * entries * 2.0 ** -24 * magnitude).clamp_min(1e-300)).max())
+        del exact, magnitude
+        n_rows = csr.rowptr.numel() - 1
+        sources = int((torch.bincount(csr.cols.long(), minlength=csr.n_cols) > 0).sum())
+        need = 8.0 * E + 4.0 * (n_rows + 1) + 4.0 * d * (sources + n_rows)
+        library = torch.sparse_csr_tensor(csr.rowptr.long(), csr.cols.long(), csr.vals,
+                                          size=(n_rows, csr.n_cols))
+        row = {"label": f"lastfm360k {direction}", "n": n, "E": E, "d": d,
+               "source_rows": sources, "pieces": csr.splits.numel() - 1,
+               "max_abs_err": float(err.max()), "of_sum_bound": of_bound,
+               "bitwise_repeat": bool(torch.equal(got, spmm_csr.spmm_csr(csr, inp))),
+               "ms": _median_ms(lambda: spmm_csr.spmm_csr(csr, inp), reps=10, calls=5),
+               "bound_ms": need / PEAK_BYTES * 1e3, "bound_by": "bytes",
+               "all_gathers_ms": (8.0 * E + 4.0 * d * (E + n_rows)) / PEAK_BYTES * 1e3,
+               "plain_ms": _median_ms(lambda: spmm_csr.spmm_csr_reference(csr, inp), 3),
+               "library_ms": _median_ms(lambda: torch.sparse.mm(library, inp), 5),
+               "kernels_ms": _device_profile(lambda: spmm_csr.spmm_csr(csr, inp), 5),
+               "csr_build_s": build_s, "card": card}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if direction == "forward":
+            row["coo_hop_ms"] = _median_ms(lambda: spmm.spmm_coo(rows, cols, vals, x, n), 3)
+        del library, err
+        if of_bound > 1.0 or not row["bitwise_repeat"]:
+            fail(f"graph: the {direction} hop is wrong: {json.dumps(row)}")
+        out.append(row)
+    launches = spmm_csr.launches - launches0
+    del pair, rows, cols, vals, x, grad, leaf, y
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def graph(card):
+    """Phase 14: ``graph_rows``, printed as ``graph: hop`` lines; returns
+    (the launches by kernel, the rows)."""
+    t0 = time.perf_counter()
+    launches, rows = graph_rows(card)
+    for row in rows:
+        print(f"graph: hop {json.dumps(row)}", flush=True)
+    print(f"graph: phase {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"spmm_csr": launches}, rows
 
 
 # ------------------------------------------------------------ resident epochs
@@ -2403,7 +2634,7 @@ def parallel(data_root, work_dir, card, serving):
         s_w, i_w = distributed_topk_scores(mesh, U, shard_table(mesh, table), k,
                                            valid_rows=n_valid)
         torch.cuda.synchronize()
-        launches = {name: count + mod.launches - before for name, count in launches.items()}
+        launches["fused_topk"] += mod.launches - before
         if ref_trainer.train_loss_dict != trainer.train_loss_dict:
             fail(f"parallel: losses {trainer.train_loss_dict} over the mesh, "
                  f"{ref_trainer.train_loss_dict} without")
@@ -3204,20 +3435,22 @@ def main():
     rows.append(check_fused_topk(mod, Ui.half(), Ti.half(), k_prime, "ties float16", card))
     rows.append(check_fused_topk(mod, Un.half(), Tn.half(), k_prime, "d30 float16", card))
 
+    # phase 14: the CSR kernel at the FairGo cell's shapes
+    graph_launches, graph_hops = graph(card)
+
     main_row = rows[0]
-    by_path = {k["name"]: {"serve": launches[k["name"]], "train": train_launches[k["name"]],
-                           **adv_launches, "published": published_launches[k["name"]],
-                           "fairgo": fairgo_launches[k["name"]],
-                           "resident": resident_launches[k["name"]],
-                           "parallel": parallel_launches[k["name"]],
-                           "scale": scale_launches[k["name"]],
-                           "bench": bench_launches[k["name"]],
-                           "parity": parity_launches[k["name"]]} for k in KERNELS}
-    summary = [{
-        "name": k["name"], "route": k["route"], "source": k["source"],
-        "replaces": k["replaces"],
-        "launches": sum(by_path[k["name"]].values()),
-        "launches_by_path": by_path[k["name"]],
+    runs = {"serve": launches, "train": train_launches, **adv_launches,
+            "published": published_launches, "fairgo": fairgo_launches,
+            "resident": resident_launches, "parallel": parallel_launches,
+            "scale": scale_launches, "bench": bench_launches, "parity": parity_launches,
+            "graph": graph_launches}
+    by_path = {k["name"]: {run: counts.get(k["name"], 0) for run, counts in runs.items()}
+               for k in KERNELS}
+    off_graph = {run: n for run, n in by_path["spmm_csr"].items()
+                 if n and run not in ("fairgo", "graph")}
+    if off_graph:
+        fail(f"spmm_csr launched on paths without a sparse hop: {off_graph}")
+    topk = {
         "max_abs_err": max(r["max_abs_err"] for r in rows + [shard_row] + scale_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3234,6 +3467,22 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms") if key in r}
             for r in rows + [shard_row] + scale_rows},
         "f32_parent_digests": parity,
+    }
+    hop = graph_hops[0]
+    csr = {
+        "max_abs_err": max(r["max_abs_err"] for r in graph_hops),
+        **{key: hop[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "paths": {r["label"]: {key: r[key] for key in (
+            "n", "E", "d", "source_rows", "max_abs_err", "of_sum_bound", "ms", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "all_gathers_ms", "library_ms")}
+            for r in graph_hops},
+    }
+    summary = [{
+        "name": k["name"], "route": k["route"], "source": k["source"],
+        "replaces": k["replaces"],
+        "launches": sum(by_path[k["name"]].values()),
+        "launches_by_path": by_path[k["name"]],
+        **{"fused_topk": topk, "spmm_csr": csr}[k["name"]],
     } for k in KERNELS]
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's fused score + top-k' kernel across k' and batch size.
+"""Time the port's fused score + top-k' kernel across k' and batch size,
+or its CSR product at FairGo's Last.fm-360K shapes.
 
     python3 kernel_sweep.py [--out PATH] [--profile] [--scale [--modes]]
+    python3 kernel_sweep.py --spmm [--out PATH]
 
 Needs one CUDA card. Gaussian inputs from a seeded generator at d = 64
 against the ml-1M-scale catalogue (3,630 rows with PAD; 16,384 rows for
@@ -23,6 +25,12 @@ the tensor-core kernel (``mma.sync``) and on the Hopper range kernel (TMA +
 ``wgmma``, the plan's default), at k' 1 and 10, each with its split: what
 the selection costs beside the products, what range mode saves, and what
 the Hopper kernel saves.
+
+``--spmm`` times ``ops/spmm_csr.py`` instead: ``chip_smoke.graph_rows``
+alone (chip_smoke's ``graph`` phase), the kernel forward over a D⁻¹A of the
+shapes of the benchmark's ``fairgo_pmf-lastfm360k`` and backward over Aᵀ,
+checked and timed beside its bound, the plain version, the COO hop it
+replaced and cuSPARSE (``library_ms``, a yardstick the port never calls).
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ def main():
                         help="time bench.py's 2M-item catalog in bfloat16 and float16 instead")
     parser.add_argument("--modes", action="store_true",
                         help="with --scale, also range mode off and on at k' 1 and 10")
+    parser.add_argument("--spmm", action="store_true",
+                        help="time the CSR product at FairGo's Last.fm-360K shapes instead")
     args = parser.parse_args()
 
     import torch
@@ -76,6 +86,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if args.spmm:
+        return _spmm(card, args.out)
     fused_topk.build()
     if args.scale:
         return _scale(card, args.out, args.modes)
@@ -174,6 +186,21 @@ def _modes(fused_topk, users, T, card):
         fused_topk.RANGE_MAX_K, fused_topk.WGMMA_MAX_D = saved
         fused_topk._LAUNCH_ARGS.clear()
     return rows
+
+
+def _spmm(card, out):
+    """The CSR product's rows (``chip_smoke.graph_rows``), one JSON line each."""
+    import chip_smoke
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    t0 = time.perf_counter()
+    spmm_csr.build(verbose=True)
+    print(f"build: spmm_csr {time.perf_counter() - t0:.2f} s", flush=True)
+    lines = [json.dumps(row) for row in chip_smoke.graph_rows(card)[1]]
+    print("\n".join(lines), flush=True)
+    if out:
+        with open(out, "a", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
 
 
 if __name__ == "__main__":

@@ -29,7 +29,10 @@ propagation matrix (COO arrays, and the dense ``[n, n]`` matrix while it
 stays under 2 GB in float32, or when ``dense_propagation`` says so) lives in
 non-persistent buffers: it moves with the model to its device and never
 enters a checkpoint, the port's form of the JAX package's
-``attach_state_constants`` / ``strip_state_constants``.
+``attach_state_constants`` / ``strip_state_constants``. Where the COO arrays
+lie on the card, their CSR forms (A and Aᵀ, ``ops/spmm_csr.py``), which the
+card's hop takes, are built there from them at the first hop and kept until
+the arrays move.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from torch import nn
 
 from ..ops.spmm import build_bipartite_norm_coo, coo_to_dense, propagate
+from ..ops.spmm_csr import csr_pair
 from ..utils import InputType, tracing
 from .base import FairRecommender, batch_weights, wmean
 from .layers import MLP, Linear, apply_activation, init_embedding
@@ -123,6 +127,22 @@ class FairGoBase(FairRecommender):
             self.register_buffer(dense_name, torch.from_numpy(dense).to(dense_dtype),
                                  persistent=False)
 
+    def _csr(self, prefix):
+        """The CSR forms of the ``prefix`` matrix where its COO arrays lie on
+        the card (None elsewhere: the CPU's hop takes the COO arrays, and the
+        forms built on the card are let go), built there at the first call
+        and again only when the arrays have moved."""
+        arrays = [getattr(self, f"{prefix}_{part}") for part in ("rows", "cols", "vals")]
+        if not arrays[0].is_cuda:
+            self.__dict__.pop("_csr_cache", None)
+            return None
+        cache = self.__dict__.setdefault("_csr_cache", {})
+        key = (arrays[0].device, *(a.data_ptr() for a in arrays))
+        if prefix not in cache or cache[prefix][0] != key:
+            cache.pop(prefix, None)  # free the old forms before building the new
+            cache[prefix] = (key, csr_pair(*arrays, self.n_users + self.n_items))
+        return cache[prefix][1]
+
     # ---------------------------------------------------------------- params
 
     def _filter_sizes(self):
@@ -206,10 +226,12 @@ class FairGoBase(FairRecommender):
         user_node = user_all[user]
         n = self.n_users + self.n_items
         dense = self._buffers.get("prop_dense")
+        csr = None if dense is not None else self._csr("norm")
         x = torch.cat([user_all, item_all], dim=0)
         hops = []
         for _ in range(self.n_layers):
-            x = propagate(x, self.norm_rows, self.norm_cols, self.norm_vals, n, dense=dense)
+            x = propagate(x, self.norm_rows, self.norm_cols, self.norm_vals, n, dense=dense,
+                          csr=csr)
             hops.append(x)
 
         lva_mode = self.aggr_method == "LVA" and self.n_layers > 1

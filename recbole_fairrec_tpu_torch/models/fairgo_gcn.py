@@ -38,10 +38,11 @@ class FairGo_GCN(FairGoBase):
     def _ego_embeddings(self, train):
         all_embedding = super()._ego_embeddings(train)
         if self.train_stage == "pretrain":
+            dense = self._buffers.get("gcn_dense")
             all_embedding = self.gcn(
                 all_embedding, self.gcn_rows, self.gcn_cols, self.gcn_vals,
                 act=self.gcn_act, dropout=self.gcn_dropout, train=train,
                 generator=self.dropout_generator(all_embedding.device),
-                dense=self._buffers.get("gcn_dense"),
+                dense=dense, csr=None if dense is not None else self._csr("gcn"),
             )
         return all_embedding

@@ -32,13 +32,14 @@ class GCN(nn.Module):
         )
 
     def forward(self, x, rows, cols, vals, act="relu", dropout=0.0, train=False,
-                generator=None, dense=None):
+                generator=None, dense=None, csr=None):
         """The convolutions over ``x [n, in]`` with Â as COO arrays (or
-        ``dense``); dropout masks (train only) draw from ``generator``."""
+        ``dense``, or ``csr``: ``ops.spmm.propagate``'s forms); dropout masks
+        (train only) draw from ``generator``."""
         n = x.shape[0]
         keep = 1.0 - dropout
         for i, conv in enumerate(self.convs):
-            x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense) + conv.b
+            x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense, csr=csr) + conv.b
             if i < len(self.convs) - 1:
                 x = apply_activation(act, x)
                 if train and dropout > 0.0:

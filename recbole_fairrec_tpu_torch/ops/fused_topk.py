@@ -34,21 +34,16 @@ a scratch tensor of per-chunk lists that the wrapper allocates;
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import NamedTuple
 
 import torch
 
 from ..utils import tracing
+from .nvcc_build import CSRC_DIR, build_library
 from .topk import streaming_topk_scores
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_topk.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = os.path.join(CSRC_DIR, "fused_topk.cu")
 MAX_K = 4096
 # The CUDA source's constants: users per score block, items and depth per T
 # tile, T tiles in flight, padding of a key row, threads per merge block.
@@ -95,38 +90,9 @@ _LIB = None
 _LAUNCH_ARGS = {}
 
 
-def _nvcc():
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused top-k kernel cannot be built")
-
-
 def build(verbose=False):
     """Compile the kernel library (once per source hash) and return its path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, f"fused_topk-{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", SOURCE, "-o", tmp,
-    ]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so_path
+    return build_library(SOURCE, "fused_topk", verbose)
 
 
 def _lib():

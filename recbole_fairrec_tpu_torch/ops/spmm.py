@@ -1,11 +1,15 @@
 """Graph propagation: sparse (COO) and dense products with FairGo's
 normalised rating matrices.
 
-Counterpart of ``recbole_fairrec_tpu/ops/spmm.py``. The COO form is a gather
-of the source rows times the edge values, summed into the destination rows
-with ``index_add_``; the dense form is one ``[n, n] @ [n, d]`` matrix product
-(cuBLAS on the card). Both matrices are built on the host in numpy, exactly
-as the JAX package builds them, and the model keeps them as tensors.
+Counterpart of ``recbole_fairrec_tpu/ops/spmm.py``. On the CPU the COO form
+is a gather of the source rows times the edge values, summed into the
+destination rows with ``index_add_``; on the card the same matrix goes
+through its CSR form (``ops/spmm_csr.py``: the hand-written kernel over A
+forward and over Aᵀ backward), which the caller builds once on the device
+with ``spmm_csr.csr_pair`` and passes as ``csr``. The dense form is one
+``[n, n] @ [n, d]`` matrix product (cuBLAS on the card). The COO arrays and
+the dense matrix are built on the host in numpy, exactly as the JAX package
+builds them, and the model keeps them as tensors.
 
 Dense numerics follow the JAX package's: float32 operands give a float32
 product with float32 accumulation (the JAX package asks for
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils import tracing
+from .spmm_csr import CsrHop
 
 
 def spmm_coo(rows, cols, vals, dense, n_rows):
@@ -87,21 +92,32 @@ class _Propagate(torch.autograd.Function):
         return None, matmul_f32(dense.t(), grad)
 
 
-def propagate(x, rows, cols, vals, n, dense=None):
+def propagate(x, rows, cols, vals, n, dense=None, csr=None):
     """One propagation hop, ``A @ x``: through ``dense`` (float32 or
-    bfloat16 ``[n, n]``) when given, else through the COO arrays. Traced as
-    ``spmm.propagate`` (attrs ``path``, ``edges``, ``d``); the counter
-    ``spmm.edges`` adds the matrix's edges at every hop."""
-    edges = rows.shape[0]
+    bfloat16 ``[n, n]``) when given; else through ``csr`` (a
+    ``spmm_csr.CsrPair`` of the same matrix) when given, which a CUDA ``x``
+    requires; else through the COO arrays. Traced as ``spmm.propagate``
+    (attrs ``path``: ``dense``, ``csr`` or ``coo``; ``edges``, ``d``); the
+    counter ``spmm.edges`` adds the matrix's edges at every hop,
+    ``spmm.csr_edges`` those of the hops through ``csr``."""
+    edges = 0 if rows is None else rows.shape[0]
+    path = "dense" if dense is not None else "csr" if csr is not None else "coo"
+    if path == "coo" and x.is_cuda:
+        raise ValueError("propagate: a hop on the card takes the matrix's CSR form (csr=, "
+                         "from ops.spmm_csr.csr_pair) or its dense form")
     tracing.count("spmm.edges", edges)
+    if path == "csr":
+        tracing.count("spmm.csr_edges", edges)
     with tracing.span("spmm.propagate") as sp:
         if sp:
-            sp.set("path", "coo" if dense is None else "dense")
+            sp.set("path", path)
             sp.set("edges", edges)
             sp.set("d", x.shape[1])
-        if dense is None:
-            return spmm_coo(rows, cols, vals, x, n)
-        return _Propagate.apply(dense, x.to(dense.dtype))
+        if path == "dense":
+            return _Propagate.apply(dense, x.to(dense.dtype))
+        if path == "csr":
+            return CsrHop.apply(x, csr)
+        return spmm_coo(rows, cols, vals, x, n)
 
 
 def build_bipartite_norm_coo(rating_coo, n_users, n_items):

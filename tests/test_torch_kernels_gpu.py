@@ -712,13 +712,41 @@ def test_fairgo_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch)
     to (1 - b1) / sqrt(1 - b2) = 3.16 lr of either sign, within twice that +
     1e-5."""
     monkeypatch.chdir(tmp_path)
+    on_card = _check_fairgo_steps(tmp_path, model_name, {})
+    assert on_card.model.prop_dense.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_name", ["FairGo_PMF", "FairGo_GCN"])
+def test_fairgo_csr_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch):
+    """The same steps with ``dense_propagation: False``: on the card every
+    hop (FairGo_GCN's pretrain convolutions and both models' finetune hops)
+    goes through the CSR kernel, forward and backward, against the CPU's COO
+    product, within the same tolerances."""
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    monkeypatch.chdir(tmp_path)
+    before = spmm_csr.launches
+    on_card = _check_fairgo_steps(tmp_path, model_name, {"dense_propagation": False})
+    assert "prop_dense" not in dict(on_card.model.named_buffers())
+    # pretrain: GCN_PMF's 2 convolutions forward and backward; filter: 2 hops forward and
+    # backward; discriminator: 2 hops forward (the hops' input takes no gradient there)
+    pretrain = 4 if model_name == "FairGo_GCN" else 0
+    assert spmm_csr.launches - before == pretrain + 4 + 2
+
+
+def _check_fairgo_steps(tmp_path, model_name, extra):
+    """A pretrain, a filter and a discriminator step on the card and on the
+    CPU from the same parameters and batch (see
+    ``test_fairgo_steps_on_card_match_cpu``); returns the card's trainer."""
     from recbole_fairrec_tpu_torch.data import create_dataset, data_preparation
     from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
 
     trainers, loaders = [], []
     for use_gpu in (True, False):
         config = _published(tmp_path, use_gpu, model_name, {
-            "sst_attr_list": ["gender", "age"], "gcn_dropout": 0.0, "train_batch_size": 512})
+            "sst_attr_list": ["gender", "age"], "gcn_dropout": 0.0, "train_batch_size": 512,
+            **extra})
         init_seed(config["seed"], True)
         train = data_preparation(config, create_dataset(config))[0]
         model = get_model(model_name)(config, train.dataset,
@@ -726,7 +754,7 @@ def test_fairgo_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch)
         trainers.append(get_trainer(config["MODEL_TYPE"], model_name)(config, model))
         loaders.append(train)
     on_card, on_cpu = trainers
-    assert on_card.device.type == "cuda" and on_card.model.prop_dense.device.type == "cuda"
+    assert on_card.device.type == "cuda"
     np.random.seed(3)
     interaction = next(iter(loaders[1]))
     lr = on_cpu.config["learning_rate"]
@@ -760,6 +788,7 @@ def test_fairgo_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch)
             unsure = g.abs() <= tol
             assert float(gap.where(~unsure, 0.0).max()) <= 1e-5, (tag, name)
             assert float(gap.where(unsure, 0.0).max()) <= 2 * 3.1623 * lr + 1e-5, (tag, name)
+    return on_card
 
 
 @pytest.mark.gpu
@@ -1040,3 +1069,152 @@ def test_parallel_layer_on_a_world_of_one(card, tmp_path):
         assert torch.equal(bucket_allgather_lookup(mesh, T, ids), T[ids])
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------- the CSR product
+
+
+def _power_law_graph(device, n_rows=6000, n_cols=5000, long_row=100_000, seed=0):
+    """Rows of Zipf-distributed length (up to 60 entries), a fifth of them
+    empty, and one row of ``long_row`` entries (repeated columns) that spans
+    hundreds of pieces; values and columns from the seed."""
+    gen = torch.Generator().manual_seed(seed)
+    degree = torch.from_numpy(np.random.RandomState(seed).zipf(1.6, n_rows).clip(max=60))
+    degree[torch.randperm(n_rows, generator=gen)[: n_rows // 5]] = 0
+    degree[n_rows // 3] = long_row
+    rows = torch.repeat_interleave(torch.arange(n_rows), degree)
+    cols = torch.randint(0, n_cols, (rows.numel(),), generator=gen)
+    vals = torch.rand(rows.numel(), generator=gen)
+    return rows.to(device), cols.to(device), vals.to(device), n_rows, n_cols
+
+
+def _check_within_sum_bound(out, csr, x):
+    """``out`` against the float64 product, within the float32 bound of each
+    row's sum in another order (2 × entries × 2^-24 × sum |a x|)."""
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    exact = spmm_csr.spmm_csr_reference(csr, x.double())
+    magnitude = spmm_csr.spmm_csr_reference(csr._replace(vals=csr.vals.abs()), x.abs().double())
+    entries = torch.diff(csr.rowptr).double()[:, None]
+    bound = 2 * entries * 2.0 ** -24 * magnitude
+    assert out.dtype == torch.float32
+    assert bool(((out.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 48, 64, 128, 192, 30])
+def test_spmm_csr_matches_plain_on_a_power_law_graph(card, d):
+    """Forward over A and, through the autograd Function, backward over Aᵀ:
+    each within the bound of its sums in another order, empty rows 0, the
+    long row split across pieces and joined by the carry pass; d 30 takes
+    the scalar lanes."""
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    rows, cols, vals, n_rows, n_cols = _power_law_graph(card)
+    pair = spmm_csr.csr_pair(rows, cols, vals, n_rows, n_cols)
+    long_pieces = int(pair.fwd.rowptr[n_rows // 3 + 1] - pair.fwd.rowptr[n_rows // 3])
+    assert long_pieces // spmm_csr.ITEMS >= 100
+    gen = torch.Generator(device=card).manual_seed(d)
+    x = torch.randn((n_cols, d), generator=gen, device=card).requires_grad_(True)
+    g = torch.randn((n_rows, d), generator=gen, device=card)
+    before = spmm_csr.launches
+    out = spmm_csr.CsrHop.apply(x, pair)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert spmm_csr.launches == before + 2
+    _check_within_sum_bound(out.detach(), pair.fwd, x.detach())
+    _check_within_sum_bound(x.grad, pair.bwd, g)
+    empty = torch.diff(pair.fwd.rowptr) == 0
+    assert bool(empty.any()) and bool((out.detach()[empty] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("items", [1, 7, 4096])
+def test_spmm_csr_pieces_of_any_size(card, items):
+    """A piece of one item (a carry in almost every piece), of 7, and of
+    more items than most rows hold."""
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    rows, cols, vals, n_rows, n_cols = _power_law_graph(card, n_rows=800, n_cols=700,
+                                                        long_row=3000, seed=1)
+    pair = spmm_csr.csr_pair(rows, cols, vals, n_rows, n_cols, items=items)
+    x = torch.randn((n_cols, 64), generator=torch.Generator(device=card).manual_seed(2),
+                    device=card)
+    out = spmm_csr.spmm_csr(pair.fwd, x)
+    torch.cuda.synchronize()
+    _check_within_sum_bound(out, pair.fwd, x)
+
+
+@pytest.mark.gpu
+def test_spmm_csr_gives_the_same_bits_twice(card):
+    """No float atomics: two hops of the same input are bitwise equal, and
+    so are two gradients."""
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    rows, cols, vals, n_rows, n_cols = _power_law_graph(card)
+    pair = spmm_csr.csr_pair(rows, cols, vals, n_rows, n_cols)
+    x = torch.randn((n_cols, 64), generator=torch.Generator(device=card).manual_seed(3),
+                    device=card)
+    assert torch.equal(spmm_csr.spmm_csr(pair.fwd, x), spmm_csr.spmm_csr(pair.fwd, x))
+    g = torch.randn((n_rows, 64), generator=torch.Generator(device=card).manual_seed(4),
+                    device=card)
+    assert torch.equal(spmm_csr.spmm_csr(pair.bwd, g), spmm_csr.spmm_csr(pair.bwd, g))
+
+
+@pytest.mark.gpu
+def test_spmm_csr_misaligned_rows_take_the_scalar_lanes(card):
+    """A contiguous x that starts 4 bytes past a 16-byte boundary: the
+    kernel reads it a float at a time, and agrees with the aligned copy."""
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    rows, cols, vals, n_rows, n_cols = _power_law_graph(card, n_rows=900, n_cols=800,
+                                                        long_row=5000, seed=5)
+    pair = spmm_csr.csr_pair(rows, cols, vals, n_rows, n_cols)
+    x = torch.randn((n_cols, 64), generator=torch.Generator(device=card).manual_seed(6),
+                    device=card)
+    shifted = torch.empty(n_cols * 64 + 1, device=card)[1:].view(n_cols, 64)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert torch.equal(spmm_csr.spmm_csr(pair.fwd, shifted), spmm_csr.spmm_csr(pair.fwd, x))
+
+
+@pytest.mark.gpu
+def test_spmm_csr_refuses_what_it_does_not_take(card):
+    from recbole_fairrec_tpu_torch.ops import spmm_csr
+
+    rows, cols, vals, n_rows, n_cols = _power_law_graph(card, n_rows=100, n_cols=90,
+                                                        long_row=10)
+    pair = spmm_csr.csr_pair(rows, cols, vals, n_rows, n_cols)
+    x = torch.randn((n_cols, 16), device=card)
+    before = spmm_csr.launches
+    for bad in (x.double(), x.to(torch.bfloat16)):
+        with pytest.raises(TypeError, match="float32"):
+            spmm_csr.spmm_csr(pair.fwd, bad)
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_csr.spmm_csr(pair.fwd, torch.randn((16, n_cols), device=card).t())
+    with pytest.raises(ValueError, match="same CUDA device"):
+        spmm_csr.spmm_csr(pair.fwd, x.cpu())
+    assert spmm_csr.launches == before
+
+
+@pytest.mark.gpu
+def test_propagate_on_the_card_takes_the_kernel(card):
+    """``propagate`` with the CSR form: one launch a hop, the plain COO
+    product's result within the bound, and a hop on the card without the
+    CSR form raises."""
+    from recbole_fairrec_tpu_torch.ops import spmm, spmm_csr
+
+    rows, cols, vals, n_rows, _ = _power_law_graph(card, n_rows=3000, n_cols=3000,
+                                                   long_row=20_000, seed=7)
+    pair = spmm_csr.csr_pair(rows, cols, vals, n_rows)
+    x = torch.randn((n_rows, 64), generator=torch.Generator(device=card).manual_seed(8),
+                    device=card)
+    before = spmm_csr.launches
+    h = x
+    for hop in range(2):
+        h = spmm.propagate(h, rows, cols, vals, n_rows, csr=pair)
+        assert spmm_csr.launches == before + hop + 1
+    torch.cuda.synchronize()
+    _check_within_sum_bound(spmm.propagate(x, rows, cols, vals, n_rows, csr=pair), pair.fwd, x)
+    with pytest.raises(ValueError, match="CSR form"):
+        spmm.propagate(x, rows, cols, vals, n_rows)
