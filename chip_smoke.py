@@ -80,11 +80,11 @@ Phases, each of which exits non-zero when it fails:
      the passes, both stages' evaluations and the checkpoints (no
      propagation matrix in them) read back to the same dict; a pretrain, a
      filter and a discriminator step on the card equal the CPU's; dense
-     propagation equals the COO matrix's CSR form through its kernel (one
-     launch a hop) and bfloat16 stays within its bound; seconds
+     propagation equals the sparse hop (the matrix's CSR pair through its
+     kernel, one launch a hop) and bfloat16 stays within its bound; seconds
      per epoch, validation and test, the split of each step kind, and one
-     hop against its bound are printed; a copy of each model on the COO
-     matrix takes a finetune cycle (1 filter + 5 discriminator steps;
+     hop against its bound are printed; a copy of each model without the
+     dense matrix takes a finetune cycle (1 filter + 5 discriminator steps;
      FairGo_GCN a pretrain step first) with spmm_csr's launches counted
      from 0: one a hop, forward or backward;
   9. resident: run_recbole of the training phase's BPR-MF with resident
@@ -144,7 +144,7 @@ Phases, each of which exits non-zero when it fails:
      CsrHop forward over A and backward over Aᵀ against a float64 sum
      within the float32 bound and bitwise repeatable, each timed beside
      its bound (each source row read once), the plain version, cuSPARSE
-     and (forward) the COO hop it replaced; ``graph: hop`` lines.
+     and (forward) the hop that builds its pair; ``graph: hop`` lines.
 
 The second-to-last line is ``{"kernels": [...]}`` and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1913,8 +1913,9 @@ def check_fairgo_steps(trainer, train_data, cfg, model, atol=1e-5, loss_rtol=1e-
 
 def check_fairgo_propagation(trainer, train_data, cfg, model, card):
     """On one finetune batch of the read-back trainer (card): one hop through
-    the dense float32 matrix against the COO matrix's CSR form (the kernel,
-    ``ops/spmm_csr.py``), within the float32 bound
+    the dense float32 matrix against the sparse hop (``propagate`` without
+    the dense matrix: the CSR pair built on the card for the call, the
+    kernel, ``ops/spmm_csr.py``), within the float32 bound
     of each row's sum in another order (2 x degree x 2^-24 x sum |a x|);
     the discriminator loss of a ``dense_propagation: False`` model (the
     same weights) within 1e-5 (rel) of the dense model's; a
@@ -1944,20 +1945,20 @@ def check_fairgo_propagation(trainer, train_data, cfg, model, card):
         x = torch.cat(m.forward(sst))
         dense_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n, dense=m.prop_dense)
         before = spmm_csr.launches
-        coo_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n, csr=m._csr("norm"))
+        csr_hop = propagate(x, m.norm_rows, m.norm_cols, m.norm_vals, n)
         if spmm_csr.launches != before + 1:
-            fail("fairgo propagation: the COO hop on the card did not take the CSR kernel")
+            fail("fairgo propagation: the sparse hop on the card did not take the CSR kernel")
         degree = torch.bincount(m.norm_rows, minlength=n).double()[:, None]
         bound = 2 * degree * 2.0 ** -24 * (m.prop_dense.abs() @ x.abs()).double()
-        err = (dense_hop - coo_hop).abs().double()
-        row["dense_vs_coo_max_abs"] = float(err.max())
-        row["dense_vs_coo_of_bound"] = float((err / bound.clamp_min(1e-30)).max())
+        err = (dense_hop - csr_hop).abs().double()
+        row["dense_vs_csr_max_abs"] = float(err.max())
+        row["dense_vs_csr_of_bound"] = float((err / bound.clamp_min(1e-30)).max())
         if bool((err > bound).any()):
-            fail(f"fairgo propagation: dense and COO hops differ by {float(err.max())}")
+            fail(f"fairgo propagation: dense and CSR hops differ by {float(err.max())}")
         dense_loss = float(m.calculate_dis_loss(batch, sst_list=sst))
     state = m.state_dict()
     others = {}
-    for key, extra in (("coo", {"dense_propagation": False}),
+    for key, extra in (("csr", {"dense_propagation": False}),
                        ("bf16", {"propagation_dtype": "bfloat16"})):
         config = Config(model=model, dataset=ADV_DATASET, config_dict={**cfg, **extra})
         other = get_model(model)(config, train_data.dataset)
@@ -1965,14 +1966,14 @@ def check_fairgo_propagation(trainer, train_data, cfg, model, card):
         others[key] = type(trainer)(config, other)
         _require_card_trainer(others[key], f"fairgo propagation {key}", model)
         others[key].model.train_stage = "finetune"
-    coo_model, bf16_model = others["coo"].model, others["bf16"].model
-    if "prop_dense" in coo_model._buffers or bf16_model.prop_dense.dtype != torch.bfloat16:
-        fail("fairgo propagation: the COO or bfloat16 model has the wrong matrix")
+    csr_model, bf16_model = others["csr"].model, others["bf16"].model
+    if "prop_dense" in csr_model._buffers or bf16_model.prop_dense.dtype != torch.bfloat16:
+        fail("fairgo propagation: the sparse or bfloat16 model has the wrong matrix")
     with torch.no_grad():
-        coo_loss = float(coo_model.calculate_dis_loss(batch, sst_list=sst))
-        row["dis_loss_dense"], row["dis_loss_coo"] = dense_loss, coo_loss
-        if abs(dense_loss - coo_loss) > 1e-5 * abs(dense_loss):
-            fail(f"fairgo propagation: dis loss {dense_loss} dense, {coo_loss} COO")
+        csr_loss = float(csr_model.calculate_dis_loss(batch, sst_list=sst))
+        row["dis_loss_dense"], row["dis_loss_csr"] = dense_loss, csr_loss
+        if abs(dense_loss - csr_loss) > 1e-5 * abs(dense_loss):
+            fail(f"fairgo propagation: dis loss {dense_loss} dense, {csr_loss} CSR")
         dense16 = bf16_model.prop_dense
         dense16_cpu = dense16.cpu()
         h32, h16 = x, x
@@ -2024,13 +2025,13 @@ def count_fairgo_csr_launches(trainer, train_data, cfg, model):
 
     config = Config(model=model, dataset=ADV_DATASET,
                     config_dict={**cfg, "dense_propagation": False})
-    coo = type(trainer)(config, get_model(model)(config, train_data.dataset))
-    coo.model.load_state_dict(trainer.model.state_dict())
-    _require_card_trainer(coo, f"fairgo {model} csr cycle", model)
-    m = coo.model
+    sparse = type(trainer)(config, get_model(model)(config, train_data.dataset))
+    sparse.model.load_state_dict(trainer.model.state_dict())
+    _require_card_trainer(sparse, f"fairgo {model} csr cycle", model)
+    m = sparse.model
     if any(name.endswith("_dense") for name in m._buffers):
-        fail(f"fairgo {model} csr cycle: the COO model holds a dense matrix")
-    sst = _fairgo_attrs(coo)
+        fail(f"fairgo {model} csr cycle: the sparse model holds a dense matrix")
+    sst = _fairgo_attrs(sparse)
     steps = [("filter", "calculate_loss", sst)] + \
         [("dis", "calculate_dis_loss", sst)] * FAIRGO_DIS_STEPS
     expected = (2 + FAIRGO_DIS_STEPS) * m.n_layers
@@ -2043,8 +2044,8 @@ def count_fairgo_csr_launches(trainer, train_data, cfg, model):
     spmm_csr.launches = 0
     for tag, loss_name, subset in steps:
         m.train_stage = "pretrain" if tag == "pretrain" else "finetune"
-        batch = coo._train_batch(interaction, m.loss_batch_fields(loss_name, subset))
-        loss = coo._train_step(batch, loss_name, subset, coo._tx_by_tag(tag))
+        batch = sparse._train_batch(interaction, m.loss_batch_fields(loss_name, subset))
+        loss = sparse._train_step(batch, loss_name, subset, sparse._tx_by_tag(tag))
         if not math.isfinite(float(loss)):
             fail(f"fairgo {model} csr cycle: the {tag} loss is not finite")
     _sync()
@@ -2053,7 +2054,7 @@ def count_fairgo_csr_launches(trainer, train_data, cfg, model):
         fail(f"fairgo {model} csr cycle: {launches} launches of spmm_csr, expected {expected}")
     print(f"fairgo: {model} csr cycle {[s[0] for s in steps]}: spmm_csr launches {launches}",
           flush=True)
-    del coo
+    del sparse
     torch.cuda.empty_cache()
     return launches
 
@@ -2144,7 +2145,7 @@ def fairgo(data_root, work_dir, card):
     on the card against the CPU, the propagation forms (FairGo_PMF) and the
     timings: seconds per pretrain epoch, finetune epoch, validation and
     test, the split of each step kind, and one hop against its bound; then
-    a cycle of each model on the COO matrix's CSR path
+    a cycle of each model on the sparse (CSR) path
     (``count_fairgo_csr_launches``). Returns the kernels' launch counts: the
     runs' (dense, none) and the cycles' (``spmm_csr``)."""
     import torch
@@ -2268,8 +2269,10 @@ def graph_rows(card, **graph_args):
     source row read once, each output row written once, at 3.35 TB/s;
     ``all_gathers_ms`` reads every entry's row from memory instead), the
     plain version (``plain_ms``), ``torch.sparse.mm`` on a CSR tensor
-    (cuSPARSE, ``library_ms``: a yardstick the port never calls), the COO
-    hop it replaced (forward) and the two CUDA kernels' device times.
+    (cuSPARSE, ``library_ms``: a yardstick the port never calls), the
+    forward hop through ``spmm.propagate`` without the pair, which builds it
+    for the call (``hop_with_build_ms``; bitwise the kernel's result), and
+    the two CUDA kernels' device times.
     Returns (the launches, the two rows)."""
     import torch
 
@@ -2318,7 +2321,10 @@ def graph_rows(card, **graph_args):
                "csr_build_s": build_s, "card": card}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if direction == "forward":
-            row["coo_hop_ms"] = _median_ms(lambda: spmm.spmm_coo(rows, cols, vals, x, n), 3)
+            if not torch.equal(spmm.propagate(x, rows, cols, vals, n), got):
+                fail("graph: the hop that builds its CSR pair differs from the kernel's")
+            row["hop_with_build_ms"] = _median_ms(
+                lambda: spmm.propagate(x, rows, cols, vals, n), 3)
         del library, err
         if of_bound > 1.0 or not row["bitwise_repeat"]:
             fail(f"graph: the {direction} hop is wrong: {json.dumps(row)}")

@@ -20,17 +20,18 @@ calls), which splits the score + select kernel from the merge.
 rows: a 2,097,152 x 128 table and users in bfloat16, then in float16, at B
 128 and 1024, k' 10, each checked against the plain version, with the
 split, the bound and the library call). ``--modes`` then times the
-bfloat16 table at each B again with range mode off (a list per chunk), on
-the tensor-core kernel (``mma.sync``) and on the Hopper range kernel (TMA +
-``wgmma``, the plan's default), at k' 1 and 10, each with its split: what
-the selection costs beside the products, what range mode saves, and what
-the Hopper kernel saves.
+bfloat16 table at each B again with range mode off (a list per chunk on
+the tensor-core kernel, ``mma.sync``) and on (the Hopper range kernel, TMA
++ ``wgmma``, the plan's default), at k' 1 and 10, each with its split:
+what the selection costs beside the products, and what range mode
+saves.
 
 ``--spmm`` times ``ops/spmm_csr.py`` instead: ``chip_smoke.graph_rows``
 alone (chip_smoke's ``graph`` phase), the kernel forward over a D⁻¹A of the
 shapes of the benchmark's ``fairgo_pmf-lastfm360k`` and backward over Aᵀ,
-checked and timed beside its bound, the plain version, the COO hop it
-replaced and cuSPARSE (``library_ms``, a yardstick the port never calls).
+checked and timed beside its bound, the plain version, the hop that
+builds its pair for the call and cuSPARSE (``library_ms``, a yardstick the
+port never calls).
 """
 
 from __future__ import annotations
@@ -157,19 +158,18 @@ def _scale(card, out, modes):
 
 
 def _modes(fused_topk, users, T, card):
-    """Each B at k' 1 and 10 with range mode off (RANGE_MAX_K 0: a list per
-    chunk, the split merge), on the tensor-core kernel (WGMMA_MAX_D 0) and
-    on the Hopper range kernel (the plan's default): the median of one call
-    and the split into the two CUDA kernels. The module's plan is put back
-    afterwards."""
+    """Each B at k' 1 and 10 with range mode off (RANGE_MAX_K 0 and
+    WGMMA_MAX_D 0: the tensor-core kernel, a list per chunk, the split
+    merge) and on the Hopper range kernel (the plan's default): the median
+    of one call and the split into the two CUDA kernels. The module's plan
+    is put back afterwards."""
     import chip_smoke as cs
 
     rows = []
     saved = fused_topk.RANGE_MAX_K, fused_topk.WGMMA_MAX_D
     try:
         for B, U in users.items():
-            for mode, max_k, max_d in (("chunk", 0, 0), ("range", saved[0], 0),
-                                       ("wgmma", *saved)):
+            for mode, max_k, max_d in (("chunk", 0, 0), ("wgmma", *saved)):
                 for k in (1, cs.SCALE_K):
                     fused_topk.RANGE_MAX_K, fused_topk.WGMMA_MAX_D = max_k, max_d
                     fused_topk._LAUNCH_ARGS.clear()

@@ -21,7 +21,8 @@
 //    (score_select_wgmma_kernel: TMA, wgmma with f32 accumulators, the
 //    selection in registers; below);
 //  * the other same-type half calls run the products on the tensor cores
-//    through mma.sync m16n8k16 (f32 accumulators). Either way the products
+//    through mma.sync m16n8k16 (f32 accumulators), a list per chunk
+//    (score_select_mma_kernel). Either way the products
 //    stay exact; only the order and rounding of the d additions differ
 //    from a chain of fmaf;
 //  * every call with an f32 operand, and the mixed bf16 / f16 pairs, run
@@ -56,8 +57,7 @@
 // H100 80GB HBM3 at 700 W, bf16, k' 10): B 128 0.508 ms a call back to back
 // (score + select 0.490, merge 0.017) against the 0.160 ms bytes bound, B
 // 1024 1.727 ms (1.675 + 0.035) against the 0.556 ms operations bound. A
-// call alone: 0.580 / 1.782 ms, where the mma.sync range mode it replaces
-// took 1.601 / 6.759 ms; the plain version 111 / 276 ms,
+// call alone: 0.580 / 1.782 ms; the plain version 111 / 276 ms,
 // topk(mm(out_dtype=f32)) 3.88 / 30.7 ms. Against
 // the bytes at B 128, TMA streams each tile once, 5 in flight an SM (the
 // products and a vote a tile alone take ~0.18 ms). Against the operations
@@ -93,21 +93,6 @@
 //     * Each score becomes a 32-bit key whose unsigned order is the float
 //       order (-0.0 folded into +0.0 first: the float compare calls them
 //       equal, the bits would not). Item 0 gets the key of -inf.
-//     * Range mode of score_select_mma_kernel (k' <= 32, catalogs of many
-//       chunks, only the calls the Hopper range kernel cannot take: d % 8
-//       != 0, d > 128, a user or table pointer off 16 bytes): a
-//       block walks cpb consecutive chunks (U staged once; the next chunk's
-//       first T tiles copied while the current one's keys are selected),
-//       and each warp keeps, for each of its 8 users, the exact top k' seen
-//       so far as one 64-bit word a lane, (key, then smaller item). The
-//       range's first chunk fills it (the threshold below takes at most
-//       k' + 32 keys, which a 64-element warp sort orders); a later chunk
-//       costs one compare per key against the set's worst key for all 8
-//       users, and only a key above it is offered (a warp reduction
-//       replaces the worst entry). A key equal to the worst belongs to a
-//       later item and ranks below it. The range then writes one list of k'
-//       entries in item order, its bound (the k'-th key) and largest key:
-//       a user's lists shrink from 42 entries per chunk to 10 per range.
 //     * Selection linear in the scores, without atomics or sorting: each
 //       warp takes its 8 users 2 at a time, a chunk's keys in 16 registers
 //       a lane. A threshold is built bit by bit from the top (one compare
@@ -666,183 +651,9 @@ __device__ __forceinline__ void team_bitonic(unsigned long long (&v)[R],
   }
 }
 
-// Range mode (the tensor-core kernel with k' <= 32): a block walks cpb
-// chunks, and each warp keeps, for each of its 8 users, the exact top-k' of
-// the keys seen so far as a set of 64-bit words (key << 32 | ~item), one a
-// lane: lanes < k' hold an entry (0 where none yet), lanes >= k' hold ~0.
-// The word order is (key, then smaller item), so the set's least word lo
-// is its worst entry, and lo's key a lower bound on the user's k'-th key.
+// range mode (the Hopper range kernel): k' at most this, a user's top k'
+// kept in registers over a range of chunks
 constexpr int kRangeMaxK = 32;
-constexpr int kUsersPerWarp = kBM / kWarps;
-
-__device__ __forceinline__ unsigned long long warp_min64(unsigned long long v) {
-  const unsigned hi = __reduce_min_sync(kFull, static_cast<unsigned>(v >> 32));
-  const unsigned lo =
-      __reduce_min_sync(kFull, static_cast<unsigned>(v >> 32) == hi ? static_cast<unsigned>(v)
-                                                                    : kFull);
-  return (static_cast<unsigned long long>(hi) << 32) | lo;
-}
-
-// Offer (key, item) to a set (warp-uniform arguments): it replaces the
-// worst entry where it ranks above it.
-__device__ __forceinline__ void offer(unsigned long long& set, unsigned long long& lo,
-                                      unsigned key, int item, int lane) {
-  const unsigned long long w =
-      (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(~item);
-  if (w > lo) {
-    const unsigned holders = __ballot_sync(kFull, set == lo);  // empty slots tie at 0
-    if (lane == __ffs(holders) - 1) set = w;
-    lo = warp_min64(set);
-  }
-}
-
-// A sort word (~key << 32 | item: score descending, then item ascending)
-// as a set word; ~0 (no entry) as an empty slot.
-__device__ __forceinline__ unsigned long long set_word(unsigned long long w) {
-  if (w == ~0ull) return 0ull;
-  return (static_cast<unsigned long long>(~static_cast<unsigned>(w >> 32)) << 32) |
-         static_cast<unsigned>(~static_cast<unsigned>(w));
-}
-
-// The first chunk of a range: each user's set is the exact top k' of the
-// keys the chunk's threshold takes (at most k' + kSlack <= 64, which hold
-// the chunk's top k'), staged at the start of the user's own key row and
-// sorted by a 64-element warp bitonic sort.
-__device__ __forceinline__ void range_first(unsigned* keys, int kstride,
-                                            unsigned long long (&set)[kUsersPerWarp],
-                                            unsigned long long (&lo)[kUsersPerWarp], int b0,
-                                            int B, int n, int k, int c0, int warp, int lane) {
-  const int L = min(k, n);
-#pragma unroll
-  for (int g = 0; g < kUsersPerWarp; g += kUsersAtOnce) {
-    unsigned r[kUsersAtOnce][kKeysPerLane];
-    bool live[kUsersAtOnce];
-    load_user_keys(keys, kstride, b0, B, n, g, warp, lane, r, live);
-    unsigned thr[kUsersAtOnce];
-    int krem[kUsersAtOnce];
-    bool all_eq[kUsersAtOnce];
-    if (L == 1) {  // the best key, its first occurrence
-#pragma unroll
-      for (int u = 0; u < kUsersAtOnce; ++u) {
-        unsigned best = 0u;
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) best = max(best, r[u][t]);
-        thr[u] = __reduce_max_sync(kFull, best);
-        krem[u] = 1;
-        all_eq[u] = false;
-      }
-    } else {
-      chunk_threshold(r, live, L, n, thr, krem, all_eq);
-    }
-    __syncwarp();  // every lane holds both users' keys before a row is overwritten
-#pragma unroll
-    for (int u = 0; u < kUsersAtOnce; ++u) {
-      if (!live[u]) continue;  // warp-uniform
-      bool take[kKeysPerLane];
-      take_mask(r[u], thr[u], krem[u], all_eq[u], n, lane, take);
-      auto* row = reinterpret_cast<unsigned long long*>(keys + (warp + kWarps * (g + u)) * kstride);
-      int pos = 0;
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) {
-        const unsigned vote = __ballot_sync(kFull, take[t]);
-        if (take[t])
-          row[pos + __popc(vote & lanemask_lt())] =
-              (static_cast<unsigned long long>(~r[u][t]) << 32) |
-              static_cast<unsigned>(c0 + lane + 32 * t);
-        pos += __popc(vote);
-      }
-      __syncwarp();
-      unsigned long long v[2] = {2 * lane < pos ? row[2 * lane] : ~0ull,
-                                 2 * lane + 1 < pos ? row[2 * lane + 1] : ~0ull};
-      team_bitonic<32, 2>(v, nullptr, lane);  // strides below 64 stay in registers and lanes
-      // element j of the order is lane j / 2's v[j % 2]
-      const unsigned long long e0 = __shfl_sync(kFull, v[0], lane >> 1);
-      const unsigned long long e1 = __shfl_sync(kFull, v[1], lane >> 1);
-      set[g + u] = lane < k ? set_word((lane & 1) ? e1 : e0) : ~0ull;
-      lo[g + u] = warp_min64(set[g + u]);
-    }
-  }
-}
-
-// A later chunk of a range: a key equal to lo's key belongs to a later item
-// than every entry of the set, so it ranks below lo; only keys above it are
-// offered. The warp first tests all 8 users (16-byte loads, any order),
-// then offers the keys of those that have one, in item order.
-__device__ __forceinline__ void range_next(const unsigned* keys, int kstride,
-                                           unsigned long long (&set)[kUsersPerWarp],
-                                           unsigned long long (&lo)[kUsersPerWarp], int b0,
-                                           int B, int n, int c0, int warp, int lane) {
-  unsigned hits = 0u;
-#pragma unroll
-  for (int u = 0; u < kUsersPerWarp; ++u) {
-    const int m = warp + kWarps * u;
-    const unsigned lk = static_cast<unsigned>(lo[u] >> 32);
-    const uint4* row = reinterpret_cast<const uint4*>(keys + m * kstride);
-    unsigned mx = 0u;
-#pragma unroll
-    for (int q = 0; q < kKeysPerLane / 4; ++q) {
-      const int i0 = 4 * (lane + 32 * q);  // items i0 .. i0 + 3 of the chunk
-      if (i0 < n) {
-        const uint4 w = row[lane + 32 * q];
-        mx = max(mx, max(max(w.x, i0 + 1 < n ? w.y : 0u), max(i0 + 2 < n ? w.z : 0u,
-                                                              i0 + 3 < n ? w.w : 0u)));
-      }
-    }
-    if (__any_sync(kFull, mx > lk) && b0 + m < B) hits |= 1u << u;
-  }
-#pragma unroll
-  for (int u = 0; u < kUsersPerWarp; ++u) {
-    if (((hits >> u) & 1u) == 0u) continue;  // warp-uniform
-    const int m = warp + kWarps * u;
-    const unsigned lk = static_cast<unsigned>(lo[u] >> 32);
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      const unsigned key = lane + 32 * t < n ? keys[m * kstride + lane + 32 * t] : 0u;
-      unsigned vote = __ballot_sync(kFull, key > lk);
-      while (vote != 0u) {
-        const int src = __ffs(vote) - 1;
-        vote &= vote - 1;
-        offer(set[u], lo[u], __shfl_sync(kFull, key, src), c0 + src + 32 * t, lane);
-      }
-    }
-  }
-}
-
-// The end of a range: each user's set becomes its list for the range (k'
-// entries in item order, entry(0, 0) where empty), its bound (lo's key: the
-// range holds k' keys at or above it; 0 where it holds fewer items) and,
-// where maxes is not null, its largest key.
-__device__ __forceinline__ void write_range(unsigned long long* __restrict__ lists,
-                                            unsigned* __restrict__ bounds,
-                                            unsigned* __restrict__ maxes,
-                                            const unsigned long long (&set)[kUsersPerWarp],
-                                            const unsigned long long (&lo)[kUsersPerWarp],
-                                            int b0, int B, int k, int warp, int lane) {
-  const int S = gridDim.y;  // ranges
-#pragma unroll
-  for (int u = 0; u < kUsersPerWarp; ++u) {
-    const int b = b0 + warp + kWarps * u;
-    if (b >= B) continue;  // warp-uniform
-    const unsigned key = lane < k ? static_cast<unsigned>(set[u] >> 32) : 0u;
-    // (item << 32 | key), an entry; empty slots and lanes >= k' sort last
-    unsigned long long w =
-        key != 0u ? (static_cast<unsigned long long>(~static_cast<unsigned>(set[u])) << 32) | key
-                  : ~0ull;
-#pragma unroll
-    for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-      for (int stride = size >> 1; stride > 0; stride >>= 1)
-        w = bitonic_keep(w, __shfl_xor_sync(kFull, w, stride), lane, stride, size);
-    }
-    const size_t at = static_cast<size_t>(b) * S + blockIdx.y;
-    if (lane < k) lists[at * k + lane] = w == ~0ull ? entry(0u, 0) : w;
-    const unsigned top = __reduce_max_sync(kFull, key);
-    if (lane == 0) {
-      bounds[at] = static_cast<unsigned>(lo[u] >> 32);
-      if (maxes != nullptr) maxes[at] = top;
-    }
-  }
-}
 
 template <typename TU, typename TT, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1015,16 +826,12 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], 
 // TH | ring[kStages][kBN][kTSM] TH | keys[kBM][kstride] u32. A warp's
 // 32 users x 64 items are m-tiles mi (users wm + 16 mi + {g, g + 8}) by
 // n-tiles nj (items wn + 8 nj + {2 t, 2 t + 1}), g = lane / 4, t = lane % 4.
-// A block takes cpb consecutive chunks (blockIdx.y: chunks [cpb y, cpb y +
-// cpb)): with cpb 1 it selects each chunk's list as the CUDA-core kernel
-// does; with cpb > 1 (range mode, k' <= 32) it keeps each user's top k'
-// over the chunks in registers and writes one list of k' per range.
 template <typename TH, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
 score_select_mma_kernel(const TH* __restrict__ U, const TH* __restrict__ T,
                         unsigned long long* __restrict__ lists, unsigned* __restrict__ bounds,
                         unsigned* __restrict__ maxes, unsigned* __restrict__ counters, int B,
-                        int I, int d, int k, int chunk, int cpb, int mask_pad) {
+                        int I, int d, int k, int chunk, int mask_pad) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dpad = (d + kBKM - 1) / kBKM * kBKM;
   const int ustride = dpad + 8;  // an odd number of 16-byte units
@@ -1037,14 +844,15 @@ score_select_mma_kernel(const TH* __restrict__ U, const TH* __restrict__ T,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int b0 = blockIdx.x * kBM;
+  const int c0 = blockIdx.y * chunk;
+  const int n = min(chunk, I - c0);  // items of this chunk
+  const int n_end = c0 + n;
+  const int ntiles = (n + kBN - 1) / kBN;
   const int nk = dpad / kBKM;
-  const int ch0 = blockIdx.y * cpb;
-  const int ch1 = min((I + chunk - 1) / chunk, ch0 + cpb);
-  const bool range = cpb > 1;
+  const int nsteps = ntiles * nk;
   clear_counters(counters, b0, B, tid);
 
-  // U's rows, in their own type, join the first copy group and stay for
-  // every chunk
+  // U's rows, in their own type, join the first copy group
   if constexpr (VEC) {
     const int per_row = dpad / 8;
     for (int e = tid; e < kBM * per_row; e += kThreads) {
@@ -1060,6 +868,15 @@ score_select_mma_kernel(const TH* __restrict__ U, const TH* __restrict__ T,
       const bool valid = b0 + m < B && c < d;
       us[m * ustride + c] = valid ? U[static_cast<size_t>(b0 + m) * d + c] : zero_of<TH>();
     }
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) {
+      const int tile = s / nk;
+      load_t_tile<TH, VEC, kBKM, kTSM>(ring + s * kBN * kTSM, T, c0 + tile * kBN, n_end,
+                                       (s - tile * nk) * kBKM, d, tid);
+    }
+    cp_async_commit();
   }
 
   const int g = lane >> 2;
@@ -1078,120 +895,79 @@ score_select_mma_kernel(const TH* __restrict__ U, const TH* __restrict__ T,
     for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.0f;
-  unsigned long long set[kUsersPerWarp];  // range mode: the warp's users' top k'
-  unsigned long long lo[kUsersPerWarp];
-#pragma unroll
-  for (int u = 0; u < kUsersPerWarp; ++u) {
-    set[u] = lane < k ? 0ull : ~0ull;
-    lo[u] = 0ull;
-  }
 
-  // a chunk's first kStages - 1 T tiles: for the next chunk of a range they
-  // are copied while this chunk's keys are selected
-  auto prologue = [&](int ch) {
-    const int c0 = ch * chunk;
-    const int n_end = c0 + min(chunk, I - c0);
-    const int nsteps = (n_end - c0 + kBN - 1) / kBN * nk;
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nsteps) {
-        const int tile = s / nk;
-        load_t_tile<TH, VEC, kBKM, kTSM>(ring + s * kBN * kTSM, T, c0 + tile * kBN, n_end,
-                                         (s - tile * nk) * kBKM, d, tid);
-      }
-      cp_async_commit();
+  int tile = 0;
+  int ks = 0;
+  int slot = 0;
+  int ld_tile = (kStages - 1) / nk;
+  int ld_ks = (kStages - 1) % nk;
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (ld_tile < ntiles) {
+      const int nslot = slot == 0 ? kStages - 1 : slot - 1;
+      load_t_tile<TH, VEC, kBKM, kTSM>(ring + nslot * kBN * kTSM, T, c0 + ld_tile * kBN, n_end,
+                                       ld_ks * kBKM, d, tid);
     }
-  };
-  prologue(ch0);
-  for (int ch = ch0; ch < ch1; ++ch) {
-    const int c0 = ch * chunk;
-    const int n = min(chunk, I - c0);  // items of this chunk
-    const int n_end = c0 + n;
-    const int ntiles = (n + kBN - 1) / kBN;
-    const int nsteps = ntiles * nk;
+    cp_async_commit();
+    if (++ld_ks == nk) {
+      ld_ks = 0;
+      ++ld_tile;
+    }
 
-    int tile = 0;
-    int ks = 0;
-    int slot = 0;
-    int ld_tile = (kStages - 1) / nk;
-    int ld_ks = (kStages - 1) % nk;
-    for (int step = 0; step < nsteps; ++step) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      if (ld_tile < ntiles) {
-        const int nslot = slot == 0 ? kStages - 1 : slot - 1;
-        load_t_tile<TH, VEC, kBKM, kTSM>(ring + nslot * kBN * kTSM, T, c0 + ld_tile * kBN,
-                                         n_end, ld_ks * kBKM, d, tid);
-      }
-      cp_async_commit();
-      if (++ld_ks == nk) {
-        ld_ks = 0;
-        ++ld_tile;
-      }
-
-      const unsigned b_base = smem_addr(ring + slot * kBN * kTSM + b_off);
+    const unsigned b_base = smem_addr(ring + slot * kBN * kTSM + b_off);
 #pragma unroll
-      for (int kk = 0; kk < kBKM; kk += 16) {
-        unsigned a[2][4];
+    for (int kk = 0; kk < kBKM; kk += 16) {
+      unsigned a[2][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], a_base + 2 * (mi * 16 * ustride + ks * kBKM + kk));
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(a[mi], a_base + 2 * (mi * 16 * ustride + ks * kBKM + kk));
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          unsigned bq[4];
-          ldmatrix_x4(bq, b_base + 2 * (p * 16 * kTSM + kk));
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma16816<TH>(acc[mi][2 * p], a[mi], bq[0], bq[1]);
-            mma16816<TH>(acc[mi][2 * p + 1], a[mi], bq[2], bq[3]);
-          }
-        }
-      }
-
-      if (ks == nk - 1) {  // the tile's products are complete: store their keys
+      for (int p = 0; p < 4; ++p) {
+        unsigned bq[4];
+        ldmatrix_x4(bq, b_base + 2 * (p * 16 * kTSM + kk));
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int nj = 0; nj < 8; ++nj) {
-            const int col = tile * kBN + wn + 8 * nj + 2 * t4;
-            const int row = wm + 16 * mi + g;
-            const bool pad = mask_pad && c0 + col == 0;
-            *reinterpret_cast<uint2*>(keys + row * kstride + col) =
-                make_uint2(pad ? kNegInfKey : order_key(acc[mi][nj][0]),
-                           order_key(acc[mi][nj][1]));
-            *reinterpret_cast<uint2*>(keys + (row + 8) * kstride + col) =
-                make_uint2(pad ? kNegInfKey : order_key(acc[mi][nj][2]),
-                           order_key(acc[mi][nj][3]));
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.0f;
-          }
+          mma16816<TH>(acc[mi][2 * p], a[mi], bq[0], bq[1]);
+          mma16816<TH>(acc[mi][2 * p + 1], a[mi], bq[2], bq[3]);
         }
-        ks = 0;
-        ++tile;
-      } else {
-        ++ks;
       }
-      slot = slot == kStages - 1 ? 0 : slot + 1;
     }
-    cp_async_wait<0>();
-    __syncthreads();  // every T tile read and every key written
-    if (ch + 1 < ch1) prologue(ch + 1);
 
-    if (!range) {
-      select_lists(keys, kstride, lists, bounds, maxes, b0, B, n, k, chunk, c0, warp, lane);
-    } else if (ch == ch0) {
-      range_first(keys, kstride, set, lo, b0, B, n, k, c0, warp, lane);
+    if (ks == nk - 1) {  // the tile's products are complete: store their keys
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) {
+          const int col = tile * kBN + wn + 8 * nj + 2 * t4;
+          const int row = wm + 16 * mi + g;
+          const bool pad = mask_pad && c0 + col == 0;
+          *reinterpret_cast<uint2*>(keys + row * kstride + col) =
+              make_uint2(pad ? kNegInfKey : order_key(acc[mi][nj][0]),
+                         order_key(acc[mi][nj][1]));
+          *reinterpret_cast<uint2*>(keys + (row + 8) * kstride + col) =
+              make_uint2(pad ? kNegInfKey : order_key(acc[mi][nj][2]),
+                         order_key(acc[mi][nj][3]));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.0f;
+        }
+      }
+      ks = 0;
+      ++tile;
     } else {
-      range_next(keys, kstride, set, lo, b0, B, n, c0, warp, lane);
+      ++ks;
     }
-    __syncthreads();  // the next chunk's keys overwrite these
+    slot = slot == kStages - 1 ? 0 : slot + 1;
   }
-  if (range) write_range(lists, bounds, maxes, set, lo, b0, B, k, warp, lane);
+  cp_async_wait<0>();
+  __syncthreads();  // every T tile read and every key written
+
+  select_lists(keys, kstride, lists, bounds, maxes, b0, B, n, k, chunk, c0, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
-// The Hopper range kernel (score_select_wgmma_kernel): range mode rebuilt on
-// TMA and wgmma for same-type half calls with k' <= 32, 16-byte aligned
+// The Hopper range kernel (score_select_wgmma_kernel): range mode, on TMA
+// and wgmma, for same-type half calls with k' <= 32, 16-byte aligned
 // tensors, d % 8 == 0 and d <= kWgMaxD. A block of 384 threads holds
 // kWgUsers = 128 users: warps 0-3 and 4-7 are two consumer warpgroups of 64
 // users each (wgmma's M side), warps 8-11 the producer warpgroup, one thread
@@ -1554,7 +1330,7 @@ __device__ __forceinline__ void select_tile(const float (&acc)[64], Sel& st, con
 // [0, ns) in no order, becomes its list for the range (k' entries in item
 // order, each word at its rank by item; entry(0, 0) where empty), with its
 // bound tau (the k'-th key, 0 where the range held fewer) and, where maxes
-// is not null, its largest key: the format of range mode's lists.
+// is not null, its largest key: the format the merge reads for a range.
 __device__ __forceinline__ void quad_write(const Buf& ub, int ns, unsigned tau, int b, int k,
                                            int q, unsigned long long* __restrict__ lists,
                                            unsigned* __restrict__ bounds,
@@ -1587,7 +1363,7 @@ __device__ __forceinline__ void fence_acc(float (&acc)[64]) {
 // Range mode on Hopper (see kWgUsers above). Grid (ceil(B / kWgUsers),
 // ranges): block (x, y) takes users [128 x, 128 x + 128) and the items of
 // chunks [cpb y, cpb y + cpb), tiles of kWgTile in ascending order, and
-// writes one list of k' entries per (range, user) as range mode does.
+// writes one list of k' entries per (range, user).
 // Selection in registers (select_tile): a thread's accumulators hold 2
 // users (rows g and g + 8 of its warp's 16), 32 items each, and each user's
 // threshold sits in a register of each of the 4 lanes of its quad. A lane
@@ -2086,17 +1862,6 @@ cudaError_t launch_score_kernel(const ScoreArgs& a) {
   return cudaGetLastError();
 }
 
-template <auto Kernel, typename TH>
-cudaError_t launch_mma_kernel(const ScoreArgs& a) {
-  const cudaError_t err = set_smem<Kernel>(a.smem);
-  if (err != cudaSuccess) return err;
-  Kernel<<<a.grid, kThreads, a.smem, a.st>>>(static_cast<const TH*>(a.U),
-                                             static_cast<const TH*>(a.T), a.lists, a.bounds,
-                                             a.maxes, a.counters, a.B, a.I, a.d, a.k, a.chunk,
-                                             a.cpb, a.mask_pad);
-  return cudaGetLastError();
-}
-
 // The Hopper range kernel's tensor map of the table: encoded once per
 // (pointer, rows, d, type, device) through the CUDA driver's entry point (no
 // link against libcuda) and kept; null where the CUDA driver refuses it.
@@ -2184,8 +1949,8 @@ cudaError_t launch_wgmma_kernel(const ScoreArgs& a, int t_type) {
 template <typename TU, typename TT>
 cudaError_t launch_score(const ScoreArgs& a) {
   if constexpr (std::is_same<TU, TT>::value && !std::is_same<TT, float>::value) {
-    return a.vec ? launch_mma_kernel<score_select_mma_kernel<TT, true>, TT>(a)
-                 : launch_mma_kernel<score_select_mma_kernel<TT, false>, TT>(a);
+    return a.vec ? launch_score_kernel<score_select_mma_kernel<TT, true>, TT, TT>(a)
+                 : launch_score_kernel<score_select_mma_kernel<TT, false>, TT, TT>(a);
   } else {
     return a.vec ? launch_score_kernel<score_select_kernel<TU, TT, true>, TU, TT>(a)
                  : launch_score_kernel<score_select_kernel<TU, TT, false>, TU, TT>(a);
@@ -2257,9 +2022,9 @@ int fused_topk_launch(const void* U, const void* T, void* scratch, void* out_s, 
   if (u_type < kF32 || u_type > kF16 || t_type < kF32 || t_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool mma = u_type == t_type && t_type != kF32;
-  // range mode (cpb > 1): the tensor-core kernel, k' <= 32, one list of k'
+  // range mode (cpb > 1): the Hopper range kernel, k' <= 32, one list of k'
   // per range of cpb chunks; otherwise one list per chunk
-  if (cpb < 1 || (cpb > 1 && (!mma || k > kRangeMaxK || S < 2)))
+  if (cpb < 1 || (cpb > 1 && (!wgmma || !mma || k > kRangeMaxK || S < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the Hopper range kernel: range mode with TMA's 16-byte rows and
   // addresses, at a depth its layout holds

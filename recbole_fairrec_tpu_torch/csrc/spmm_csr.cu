@@ -2,12 +2,12 @@
 // (ops/spmm_csr.py, behind ops/spmm.py::propagate on CUDA tensors).
 //
 // It replaces no Pallas kernel: the JAX package's COO hop
-// (recbole_fairrec_tpu/ops/spmm.py::spmm_coo) is a gather and a segment_sum
-// that XLA lowers to a scatter-add. It was added because the port's COO hop
-// on the card (gather -> multiply -> index_add_) wrote an [E, d] float32
-// temporary, read and wrote it again, scattered it with float atomics, and
-// took a sort-based backward: each hop moved its gathered rows through
-// device memory about four times.
+// (recbole_fairrec_tpu/ops/spmm.py, its COO product) is a gather and a
+// segment_sum that XLA lowers to a scatter-add. It was added because the
+// port's COO hop on the card (gather -> multiply -> index_add_) wrote an
+// [E, d] float32 temporary, read and wrote it again, scattered it with float
+// atomics, and took a sort-based backward: each hop moved its gathered rows
+// through device memory about four times.
 //
 // Bound: bytes. A hop over E entries, n rows and d float32 columns reads
 // each entry's column index and value (8 B) and the source row it names

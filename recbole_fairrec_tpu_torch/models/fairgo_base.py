@@ -29,10 +29,10 @@ propagation matrix (COO arrays, and the dense ``[n, n]`` matrix while it
 stays under 2 GB in float32, or when ``dense_propagation`` says so) lives in
 non-persistent buffers: it moves with the model to its device and never
 enters a checkpoint, the port's form of the JAX package's
-``attach_state_constants`` / ``strip_state_constants``. Where the COO arrays
-lie on the card, their CSR forms (A and Aᵀ, ``ops/spmm_csr.py``), which the
-card's hop takes, are built there from them at the first hop and kept until
-the arrays move.
+``attach_state_constants`` / ``strip_state_constants``. Without the dense
+matrix a hop takes the CSR forms (A and Aᵀ, ``ops/spmm_csr.py``), built from
+the COO arrays on their device at the first hop and kept until the arrays
+move.
 """
 
 from __future__ import annotations
@@ -128,14 +128,10 @@ class FairGoBase(FairRecommender):
                                  persistent=False)
 
     def _csr(self, prefix):
-        """The CSR forms of the ``prefix`` matrix where its COO arrays lie on
-        the card (None elsewhere: the CPU's hop takes the COO arrays, and the
-        forms built on the card are let go), built there at the first call
-        and again only when the arrays have moved."""
+        """The CSR forms of the ``prefix`` matrix, on the device of its COO
+        arrays: built there at the first call and again only when the arrays
+        have moved."""
         arrays = [getattr(self, f"{prefix}_{part}") for part in ("rows", "cols", "vals")]
-        if not arrays[0].is_cuda:
-            self.__dict__.pop("_csr_cache", None)
-            return None
         cache = self.__dict__.setdefault("_csr_cache", {})
         key = (arrays[0].device, *(a.data_ptr() for a in arrays))
         if prefix not in cache or cache[prefix][0] != key:

@@ -12,9 +12,9 @@ wrapper makes no float32 copy of it). The products of half values are exact
 in float32, as under the JAX call's ``preferred_element_type``: users and
 table of one half type go through the tensor cores (``wgmma`` with TMA for
 k' <= 32 over many chunks where the table's rows are whole 16-byte units,
-``mma.sync`` otherwise; ``score_path``), every other pairing through
-float32 FMA on the widened values. float64 and
-integer tensors raise ``TypeError`` naming the dtype (the JAX package,
+``mma.sync`` a chunk a block otherwise; ``score_path``), every other
+pairing through float32 FMA on the widened values. float64 and integer
+tensors raise ``TypeError`` naming the dtype (the JAX package,
 without x64, never holds a float64 array).
 
 Shard mode (the local stage of ``parallel.eval.distributed_topk_scores``):
@@ -70,16 +70,16 @@ CAND_CAP = 2048  # kCandCap: candidates a user may bring to the split merge's so
 # SPLIT_MIN_LISTS of them and the team grid would leave SMs idle
 SPLIT_BLOCKS_PER_SM = 4
 SPLIT_MIN_LISTS = MERGE_THREADS
-# range mode (the tensor-core kernel, k' <= RANGE_MAX_K): a score block walks
+# range mode (same-type half calls, k' <= RANGE_MAX_K): a score block walks
 # several chunks, keeping each user's top k' in registers; the grid is one
-# wave of one block per SM (the longer a range, the fewer keys beat its
-# running k'-th best, and the less its first chunk costs per chunk)
+# wave of blocks (the longer a range, the fewer keys beat its running k'-th
+# best, and the less its first chunk costs per chunk)
 RANGE_MAX_K = 32  # kRangeMaxK
 # kMergeStaticSmem: the merge kernel's static shared memory, at most; CUDA
 # counts it against the opt-in limit beside the dynamic bytes
 MERGE_STATIC_SMEM = 256
-# the Hopper range kernel (score_select_wgmma_kernel: TMA and wgmma), which
-# takes range mode's calls where TMA can read the table: users per block
+# the Hopper range kernel (score_select_wgmma_kernel: TMA and wgmma), the one
+# kernel of range mode, for the calls whose table TMA can read: users per block
 # (kWgUsers: two warpgroups of 64), items per T tile (kWgTile), tiles in
 # flight (kWgStages), the depth its layout holds (kWgMaxD: two 64-element
 # panels), a user's words of top-k' set and candidates (kCandWords)
@@ -181,30 +181,26 @@ def list_len(top_k, chunk):
     return min(top_k + SLACK if top_k > 1 else top_k, chunk)
 
 
-def chunks_per_block(n_users, top_k, plan, n_sm, mma):
-    """Chunks a score block walks: 1 (a list per chunk) unless the products
-    run on the tensor cores (``mma``) and k' <= RANGE_MAX_K; then enough
-    that the grid is one wave of ``n_sm`` blocks (one range per user block
-    where the user blocks alone fill it); range mode where that is 2 chunks
-    or more."""
-    if not mma or top_k > RANGE_MAX_K:
-        return 1
+def range_mode_applies(n_users, top_k, plan, n_sm):
+    """Whether a same-type half call's items split into ranges of 2 chunks
+    or more: k' <= RANGE_MAX_K, and a grid of one wave of ``n_sm`` blocks of
+    BM users (one range per user block where the user blocks alone fill it)
+    leaves each range at least 2 chunks."""
     ranges = max(1, n_sm // _ceil_div(n_users, BM))
-    cpb = _ceil_div(plan.splits, ranges)
-    return cpb if cpb >= 2 else 1
+    return top_k <= RANGE_MAX_K and _ceil_div(plan.splits, ranges) >= 2
 
 
 def score_path(n_users, d, top_k, plan, smem_limit, n_sm, mma, aligned):
     """The score + select kernel a call takes: ``"fma"`` (the CUDA cores:
     any pairing with float32, or mixed half types), ``"wgmma"`` (the Hopper
-    range kernel: range mode's calls whose table TMA reads, rows of whole
-    16-byte units (d % 8 == 0), both tensors 16-byte aligned (``aligned``),
-    d <= WGMMA_MAX_D) or ``"mma"`` (the tensor-core kernel: every other
-    same-type half call, in chunk or range mode)."""
+    range kernel: the calls where range mode applies whose table TMA reads,
+    rows of whole 16-byte units (d % 8 == 0), both tensors 16-byte aligned
+    (``aligned``), d <= WGMMA_MAX_D) or ``"mma"`` (the tensor-core kernel, a
+    list per chunk: every other same-type half call)."""
     if not mma:
         return "fma"
     if (aligned and d % 8 == 0 and d <= WGMMA_MAX_D and wgmma_smem_bytes(d) <= smem_limit
-            and chunks_per_block(n_users, top_k, plan, n_sm, mma) > 1):
+            and range_mode_applies(n_users, top_k, plan, n_sm)):
         return "wgmma"
     return "mma"
 
@@ -343,7 +339,7 @@ def launch_args(device, B, I, d, top_k, u_dtype, t_dtype, aligned=True):
         if path == "wgmma":
             cpb, smem = wgmma_chunks_per_block(B, plan, n_sm), wgmma_smem_bytes(d)
         else:
-            cpb, smem = chunks_per_block(B, top_k, plan, n_sm, mma), plan.smem
+            cpb, smem = 1, plan.smem
         merge = merge_plan(B, I, top_k, plan, smem_limit, n_sm, cpb)
         shape = (B, I, d, top_k, plan.chunk, plan.splits, cpb, merge.n, merge.kp, merge.team,
                  int(merge.keys_in_smem), merge.parts)

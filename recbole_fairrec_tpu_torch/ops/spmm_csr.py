@@ -2,10 +2,10 @@
 kernel (``csrc/spmm_csr.cu``) and its plain PyTorch version.
 
 ``csr_pair(rows, cols, vals, n_rows)`` turns a COO matrix A (any entry
-order, repeated pairs summed as ``spmm_coo`` sums them) into the CSR forms
-of A and of Aᵀ, on the arrays' device: one stable sort by row, one stable
-sort by column, a ``bincount`` and a ``cumsum`` for each row pointer, and
-each form's cut into pieces of equal work (``merge_path_splits``). Aᵀ keeps
+order, repeated pairs summed) into the CSR forms of A and of Aᵀ, on the
+arrays' device: one stable sort by row, one stable sort by column, a
+``bincount`` and a ``cumsum`` for each row pointer, and each form's cut
+into pieces of equal work (``merge_path_splits``). Aᵀ keeps
 its own copy of the values in its own order; nothing assumes A = Aᵀ.
 Indices are int32, so the entries and rows together must stay under 2³¹.
 

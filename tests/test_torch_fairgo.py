@@ -57,7 +57,7 @@ from recbole_fairrec_tpu_torch.models.gcn import GCN
 from recbole_fairrec_tpu_torch.ops import spmm
 from recbole_fairrec_tpu_torch.quick_start import load_checkpoint
 from recbole_fairrec_tpu_torch.trainer import FairGo_GCNTrainer, FairGo_PMFTrainer
-from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed
+from recbole_fairrec_tpu_torch.utils import get_model, get_trainer, init_seed, tracing
 from recbole_fairrec_tpu_torch.utils.jax_params import (
     _flatten,
     _jax_name,
@@ -428,7 +428,9 @@ def test_structure_matches_jax(lba_env):
 
 
 def test_dense_and_coo_losses_agree(lba_env):
-    """``dense_propagation: False`` (COO hops) against the dense matrix."""
+    """``dense_propagation: False`` (every hop through the CSR pair,
+    ``CsrHop``: its spans read ``csr``) against the dense matrix, in finetune
+    (D⁻¹A) and, for FairGo_GCN, in pretrain (the GCN's Â)."""
     env = lba_env
     interaction = env.batches()[1]
     pb = _port_batch(interaction, ("user_id", "item_id", "rating", "gender", "age"))
@@ -439,10 +441,24 @@ def test_dense_and_coo_losses_agree(lba_env):
         env.config["dense_propagation"] = None
     assert "prop_dense" not in dict(coo_model.named_buffers())
     model = env.port_model("finetune")
-    for name in ("calculate_loss", "calculate_dis_loss"):
+    cases = [("finetune", "calculate_loss"), ("finetune", "calculate_dis_loss")]
+    if env.name == "FairGo_GCN":
+        assert "gcn_dense" not in dict(coo_model.named_buffers())
+        cases.append(("pretrain", "calculate_loss"))
+    for stage, name in cases:
+        model.train_stage = coo_model.train_stage = stage
+        tracing.reset()
+        tracing.enable()
+        try:
+            with torch.no_grad():
+                b = getattr(coo_model, name)(pb, sst_list=("gender", "age"))
+        finally:
+            tracing.disable()
+        paths = [r.attrs["path"] for r in tracing.records() if r.name == "spmm.propagate"]
+        tracing.reset()
+        assert paths and set(paths) == {"csr"}, (stage, name, paths)
         with torch.no_grad():
             a = getattr(model, name)(pb, sst_list=("gender", "age"))
-            b = getattr(coo_model, name)(pb, sst_list=("gender", "age"))
         assert float(a) == pytest.approx(float(b), rel=LOSS_RTOL)
 
 

@@ -4,7 +4,8 @@
 ``fairgo.filters`` around the filters over the whole table and
 ``fairgo.dis_loss`` around the discriminator loss, nested in
 ``trainer.step``; the counter ``spmm.edges`` adds the matrix's entries at
-every forward hop. Through the COO and the dense propagation, for both step
+every forward hop, ``spmm.csr_edges`` those of the hops through the CSR
+pair. Through the sparse (CSR) and the dense propagation, for both step
 kinds; off, nothing is recorded; under a profiler the spans are its
 annotations too."""
 
@@ -52,14 +53,15 @@ def test_a_step_records_the_spans_and_the_edge_counter(world, dense, kind):
     hops = [r for r in recs if r.name == "spmm.propagate"]
     assert len(hops) == 2
     for hop in hops:
-        assert hop.attrs == {"path": "dense" if dense else "coo", "edges": entries, "d": 8}
+        assert hop.attrs == {"path": "dense" if dense else "csr", "edges": entries, "d": 8}
         assert recs[hop.parent].name == "fairgo.dis_loss"
     (filters,) = [r for r in recs if r.name == "fairgo.filters"]
     assert filters.attrs == {"filters": len(SUBSET), "rows": N_USERS + N_ITEMS}
     for r in recs:
         if r.name in ("fairgo.filters", "fairgo.dis_loss"):
             assert recs[r.parent].name == "trainer.step"
-    assert tracing.counters() == {"spmm.edges": 2 * entries}
+    assert tracing.counters() == {"spmm.edges": 2 * entries,
+                                  **({} if dense else {"spmm.csr_edges": 2 * entries})}
     summary = tracing.summary()
     assert summary["spmm.propagate"]["count"] == 2
     assert all(r.end_ns >= r.start_ns for r in recs)

@@ -309,9 +309,10 @@ def test_fused_topk_wgmma_shard_mode(card, dtype, B, I, d, k, col0):
     (torch.bfloat16, 128, 1),   # users one element off 16 bytes
 ], ids=["f16-d30", "bf16-d136", "bf16-unaligned"])
 def test_fused_topk_range_mode_left_to_mma(card, dtype, d, offset):
-    """Range mode's calls that TMA cannot read stay on the tensor-core
-    kernel (``mma.sync``, a range of chunks a block) and equal the plain
-    version slot for slot on small-integer inputs."""
+    """The calls where range mode applies but TMA cannot read the tensors
+    take the tensor-core kernel (``mma.sync``, one chunk a block, a list per
+    chunk) and equal the plain version slot for slot on small-integer
+    inputs."""
     B, I, k = 1024, 524288, 10
     gen = torch.Generator(device=card).manual_seed(d + offset)
     U = torch.randint(-2, 3, (B * d + offset,), generator=gen, device=card).to(dtype)
@@ -319,7 +320,7 @@ def test_fused_topk_range_mode_left_to_mma(card, dtype, d, offset):
     T = torch.randint(-2, 3, (I, d), generator=gen, device=card).to(dtype)
     _, shape, _, path = fused_topk.launch_args(
         card, B, I, d, k, dtype, dtype, U.data_ptr() % 16 == 0 and T.data_ptr() % 16 == 0)
-    assert path == "mma" and shape[6] > 1  # the tensor-core kernel's range mode
+    assert path == "mma" and shape[6] == 1  # the tensor-core kernel: a chunk a block
     _check_slot_for_slot(U, T, k)
 
 
@@ -721,8 +722,8 @@ def test_fairgo_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch)
 def test_fairgo_csr_steps_on_card_match_cpu(card, tmp_path, model_name, monkeypatch):
     """The same steps with ``dense_propagation: False``: on the card every
     hop (FairGo_GCN's pretrain convolutions and both models' finetune hops)
-    goes through the CSR kernel, forward and backward, against the CPU's COO
-    product, within the same tolerances."""
+    goes through the CSR kernel, forward and backward, against the CPU's
+    plain CSR product, within the same tolerances."""
     from recbole_fairrec_tpu_torch.ops import spmm_csr
 
     monkeypatch.chdir(tmp_path)
@@ -1199,9 +1200,9 @@ def test_spmm_csr_refuses_what_it_does_not_take(card):
 
 @pytest.mark.gpu
 def test_propagate_on_the_card_takes_the_kernel(card):
-    """``propagate`` with the CSR form: one launch a hop, the plain COO
-    product's result within the bound, and a hop on the card without the
-    CSR form raises."""
+    """``propagate`` with the CSR form: one launch a hop, the plain
+    product's result within the bound; without ``csr`` it builds the pair
+    on the card for the call and gives the same bits."""
     from recbole_fairrec_tpu_torch.ops import spmm, spmm_csr
 
     rows, cols, vals, n_rows, _ = _power_law_graph(card, n_rows=3000, n_cols=3000,
@@ -1216,5 +1217,5 @@ def test_propagate_on_the_card_takes_the_kernel(card):
         assert spmm_csr.launches == before + hop + 1
     torch.cuda.synchronize()
     _check_within_sum_bound(spmm.propagate(x, rows, cols, vals, n_rows, csr=pair), pair.fwd, x)
-    with pytest.raises(ValueError, match="CSR form"):
-        spmm.propagate(x, rows, cols, vals, n_rows)
+    assert torch.equal(spmm.propagate(x, rows, cols, vals, n_rows),
+                       spmm.propagate(x, rows, cols, vals, n_rows, csr=pair))

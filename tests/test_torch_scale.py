@@ -12,6 +12,7 @@ float32 draws, so both packages hold the same numbers.
 
 import os
 import re
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -209,27 +210,39 @@ def test_near_tie_rule_reaches_the_last_slot():
 # ------------------------------------------------------------ launch plan
 
 
+def _h100_launch_args(monkeypatch, B, I, d, k, dtype, aligned):
+    """``launch_args`` for users and table of ``dtype`` as on an H100: its
+    opt-in shared memory and SMs in place of the card's answers."""
+    monkeypatch.setattr(fused_topk, "_LAUNCH_ARGS", {})
+    monkeypatch.setattr(fused_topk, "_lib",
+                        lambda: SimpleNamespace(fused_topk_max_smem=lambda: H100_SMEM))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=H100_SMS))
+    return fused_topk.launch_args(torch.device("cuda", 0), B, I, d, k, dtype, dtype, aligned)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
                          ids=["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("B", [128, 1024])
-def test_launch_plan_at_catalog_scale(B, dtype):
+def test_launch_plan_at_catalog_scale(B, dtype, monkeypatch):
     """bench_scale's catalog with a PAD row (2,097,153 items, d 128, k' 10),
     users of the table's type: chunks of 512 (the most a block's keys take),
     4,097 of them (a last chunk of one item) within the grid's 65,535; a
     block within the opt-in shared memory; item ids fit int32.
 
-    float32 (the CUDA cores): a list of k' + 32 = 42 entries per chunk,
-    172,033 a user (176 MB at B 128, 1.41 GB at B 1024), too many for shared
-    memory, so the split merge reads them (each at most once) in 5 blocks a
-    user at B 128 (640 blocks, at least 4 per SM) and one at B 1024.
+    A list per chunk (float32 on the CUDA cores; a half type on the
+    tensor-core kernel, where TMA cannot read the tensors): k' + 32 = 42
+    entries per chunk, 172,033 a user (176 MB at B 128, 1.41 GB at B 1024),
+    too many for shared memory, so the split merge reads them (each at most
+    once) in 5 blocks a user at B 128 (640 blocks, at least 4 per SM) and
+    one at B 1024; the launch walks one chunk a block.
 
-    bfloat16 and float16 (the tensor cores): range mode (the tensor-core
-    kernel would walk 63 chunks a block at B 128 and 513 at B 1024), taken
-    by the Hopper range kernel: a block of 128 users over 32 chunks at B 128
-    and 257 at B 1024 (one wave: 1 x 129 and 8 x 16 blocks), one list of k'
-    per range (129 and 16 a user), taken by the split merge because a warp
-    per user would leave SMs idle: 5 blocks a user at B 128 (640 blocks),
-    one at B 1024."""
+    bfloat16 and float16 with aligned tensors: range mode, taken by the
+    Hopper range kernel: a block of 128 users over 32 chunks at B 128 and
+    257 at B 1024 (one wave: 1 x 129 and 8 x 16 blocks), one list of k' per
+    range (129 and 16 a user), taken by the split merge because a warp per
+    user would leave SMs idle: 5 blocks a user at B 128 (640 blocks), one at
+    B 1024."""
     I, d = 2 * 1024 * 1024 + 1, 128
     esize = torch.empty((), dtype=dtype).element_size()
     mma = fused_topk.uses_tensor_cores(dtype, dtype)
@@ -237,8 +250,7 @@ def test_launch_plan_at_catalog_scale(B, dtype):
     plan = fused_topk.launch_plan(B, I, d, H100_SMEM, H100_SMS, esize, mma)
     assert plan.chunk == 512 and plan.splits == 4097 <= fused_topk.MAX_SPLITS
     assert plan.smem == fused_topk.smem_bytes(d, 512, esize, mma) <= H100_SMEM
-    cpb = fused_topk.chunks_per_block(B, K, plan, H100_SMS, mma)
-    merge = fused_topk.merge_plan(B, I, K, plan, H100_SMEM, H100_SMS, cpb)
+    merge = fused_topk.merge_plan(B, I, K, plan, H100_SMEM, H100_SMS)
     assert merge.smem + fused_topk.MERGE_STATIC_SMEM <= H100_SMEM
     assert I < 2**31 and merge.n < 2**31  # ids and list positions in int32
     assert 8 * fused_topk.scratch_entries(B, K, plan) == B * 4097 * 42 * 8
@@ -246,14 +258,17 @@ def test_launch_plan_at_catalog_scale(B, dtype):
         B, K, plan)
     parts = {128: 5, 1024: 1}[B]
     assert B * parts >= 4 * H100_SMS
+    assert merge == (4096 * 42 + 1, 256, fused_topk.MERGE_THREADS, False,
+                     8 * fused_topk.CAND_CAP, parts)
+    words = fused_topk.scratch_words(B, K, plan, merge)
+    assert words == B * 4097 * 42 + 2 * (B * 4097 // 2) + B * (fused_topk.CAND_CAP + 1)
+    # the launch of a call that takes a list per chunk: one chunk a block (cpb 1)
+    args = _h100_launch_args(monkeypatch, B, I, d, K, dtype, aligned=False)
+    assert args == (words, (B, I, d, K, 512, 4097, 1, *merge[:3], 0, parts),
+                    (plan.smem, merge.smem), "mma" if mma else "fma")
     if not mma:
-        assert cpb == 1
-        assert merge == (4096 * 42 + 1, 256, fused_topk.MERGE_THREADS, False,
-                         8 * fused_topk.CAND_CAP, parts)
-        assert fused_topk.scratch_words(B, K, plan, merge) == \
-            B * 4097 * 42 + 2 * (B * 4097 // 2) + B * (fused_topk.CAND_CAP + 1)
         return
-    assert cpb == {128: 63, 1024: 513}[B]  # range mode
+    assert fused_topk.range_mode_applies(B, K, plan, H100_SMS)
     assert fused_topk.score_path(B, d, K, plan, H100_SMEM, H100_SMS, mma, True) == "wgmma"
     assert fused_topk.wgmma_smem_bytes(d) == 230480 <= H100_SMEM
     cpb_want, lists = {128: (32, 129), 1024: (257, 16)}[B]
@@ -264,8 +279,11 @@ def test_launch_plan_at_catalog_scale(B, dtype):
     assert H100_SMS - 4 <= user_blocks * lists <= H100_SMS  # one wave
     assert merge == (lists * K, 256, fused_topk.MERGE_THREADS, False,
                      8 * fused_topk.CAND_CAP, parts)
-    assert fused_topk.scratch_words(B, K, plan, merge, cpb) == \
-        B * lists * K + 2 * (B * lists // 2) + B * (fused_topk.CAND_CAP + 1)
+    words = fused_topk.scratch_words(B, K, plan, merge, cpb)
+    assert words == B * lists * K + 2 * (B * lists // 2) + B * (fused_topk.CAND_CAP + 1)
+    args = _h100_launch_args(monkeypatch, B, I, d, K, dtype, aligned=True)
+    assert args == (words, (B, I, d, K, 512, 4097, cpb, *merge[:3], 0, parts),
+                    (230480, merge.smem), "wgmma")
 
 
 def test_launch_plan_at_the_pallas_bench_shape():

@@ -1,10 +1,11 @@
 """The CSR form of the propagation matrices and its product
 (``ops/spmm_csr.py``), on the CPU: the forms of A and Aᵀ built from the COO
 arrays of both normalisations (empty rows, repeated pairs), the pieces of
-the merge path the kernel reads, the plain product against ``spmm_coo``,
-the dense product and the JAX package's ``propagate``, the autograd
+the merge path the kernel reads, the plain product against the JAX
+package's ``spmm_coo`` and ``propagate`` and the dense product, the autograd
 Function's gradient against the dense transpose (``gradcheck`` in float64),
-and ``propagate``'s ``csr`` path with its span and counters. The kernel
+and ``propagate``'s ``csr`` path, passed or built, with its span and
+counters. The kernel
 itself runs on the card only (``tests/test_torch_kernels_gpu.py``); here a
 loop that follows its pieces, carries and carry pass shows that the plan it
 reads covers every entry once.
@@ -49,7 +50,7 @@ def _arrays(build, duplicates=True):
 
 
 def _summed_dense(rows, cols, vals, n):
-    """The COO matrix with repeated pairs summed, as ``spmm_coo`` reads it."""
+    """The COO matrix with repeated pairs summed, as the CSR product reads it."""
     A = np.zeros((n, n), dtype=np.float64)
     np.add.at(A, (rows.numpy(), cols.numpy()), vals.numpy().astype(np.float64))
     return A
@@ -192,12 +193,12 @@ def test_plain_csr_product_matches_coo_dense_and_jax(build):
     xt = torch.from_numpy(x)
     ours = spmm_csr.spmm_csr(pair.fwd, xt)
     assert ours.dtype == torch.float32 and ours.shape == (N, 5)
-    coo = spmm.spmm_coo(rows, cols, vals, xt, N)
+    jarrays = [jnp.asarray(a.numpy()) for a in (rows, cols, vals)]
+    coo = jax_spmm.spmm_coo(*jarrays, jnp.asarray(x), N)
     dense = spmm.propagate(xt, rows, cols, vals, N,
                            dense=torch.from_numpy(spmm.coo_to_dense(rows, cols, vals, N)))
-    ref = jax_spmm.propagate(jnp.asarray(x), *(jnp.asarray(a.numpy()) for a in (rows, cols, vals)),
-                             N)
-    for other in (coo.numpy(), dense.numpy(), np.asarray(ref)):
+    ref = jax_spmm.propagate(jnp.asarray(x), *jarrays, N)
+    for other in (np.asarray(coo), dense.numpy(), np.asarray(ref)):
         np.testing.assert_allclose(ours.numpy(), other, rtol=0, atol=PROP_ATOL)
 
 
@@ -233,15 +234,16 @@ def test_propagate_through_csr_is_traced_and_counted(tracer):
     x = torch.randn(N, 6, generator=torch.Generator().manual_seed(6))
     before = spmm_csr.launches
     out = spmm.propagate(x, rows, cols, vals, N, csr=pair)
-    spmm.propagate(x, rows, cols, vals, N)
-    np.testing.assert_allclose(out.numpy(), spmm.spmm_coo(rows, cols, vals, x, N).numpy(),
-                               rtol=0, atol=PROP_ATOL)
+    built = spmm.propagate(x, rows, cols, vals, N)  # the pair built for this call
+    assert torch.equal(built, out)
+    coo = jax_spmm.spmm_coo(*(jnp.asarray(a.numpy()) for a in (rows, cols, vals)),
+                            jnp.asarray(x.numpy()), N)
+    np.testing.assert_allclose(out.numpy(), np.asarray(coo), rtol=0, atol=PROP_ATOL)
     assert spmm_csr.launches == before  # the CPU takes the plain version
     E = rows.numel()
-    assert tracer.counters() == {"spmm.edges": 2 * E, "spmm.csr_edges": E}
+    assert tracer.counters() == {"spmm.edges": 2 * E, "spmm.csr_edges": 2 * E}
     hops = [r for r in tracer.records() if r.name == "spmm.propagate"]
-    assert [h.attrs for h in hops] == [{"path": "csr", "edges": E, "d": 6},
-                                       {"path": "coo", "edges": E, "d": 6}]
+    assert [h.attrs for h in hops] == [{"path": "csr", "edges": E, "d": 6}] * 2
 
 
 def test_dense_propagation_without_coo_arrays_counts_no_edges(tracer):
