@@ -86,7 +86,11 @@ Phases, each of which exits non-zero when it fails:
      hop against its bound are printed; a copy of each model without the
      dense matrix takes a finetune cycle (1 filter + 5 discriminator steps;
      FairGo_GCN a pretrain step first) with spmm_csr's launches counted
-     from 0: one a hop, forward or backward;
+     from 0: one a hop, forward or backward, none in the 4 discriminator
+     steps that take the kept hops; a cycle of each model on both
+     propagations whose every step equals, bit for bit, the step of a twin
+     loaded with the same parameters and Adam state before it (the twin's
+     kept hops stale, so it computes them anew), with 4 hits and 1 miss;
   9. resident: run_recbole of the training phase's BPR-MF with resident
      epochs (device_epoch_shuffle: the train table on the card, the
      shuffle and the negatives drawn there), 3 epochs, streaming validation
@@ -2014,9 +2018,10 @@ def count_fairgo_csr_launches(trainer, train_data, cfg, model):
     steps) on the loader's first batch, with ``spmm_csr.launches`` set to 0 just
     before: every hop is one launch of the CSR kernel, forward and
     backward, so the count must be the GCN's convolutions twice (pretrain),
-    ``n_layers`` twice (the filter step) and ``n_layers`` a discriminator
-    step (the discriminators' gradients never reach back through the hops).
-    Returns the count."""
+    ``n_layers`` twice (the filter step) and ``n_layers`` for the first
+    discriminator step (the discriminators' gradients never reach back
+    through the hops, and the later discriminator steps read the hops the
+    first one kept). Returns the count."""
     import torch
 
     from recbole_fairrec_tpu_torch import Config
@@ -2034,7 +2039,7 @@ def count_fairgo_csr_launches(trainer, train_data, cfg, model):
     sst = _fairgo_attrs(sparse)
     steps = [("filter", "calculate_loss", sst)] + \
         [("dis", "calculate_dis_loss", sst)] * FAIRGO_DIS_STEPS
-    expected = (2 + FAIRGO_DIS_STEPS) * m.n_layers
+    expected = 3 * m.n_layers
     if model == "FairGo_GCN":
         steps.insert(0, ("pretrain", "calculate_loss", None))
         expected += 2 * len(m.gcn.convs)
@@ -2057,6 +2062,85 @@ def count_fairgo_csr_launches(trainer, train_data, cfg, model):
     del sparse
     torch.cuda.empty_cache()
     return launches
+
+
+def check_fairgo_hop_cache(trainer, train_data, cfg, model):
+    """One finetune cycle (a filter step and ``FAIRGO_DIS_STEPS``
+    discriminator steps on the loader's batches, over the YAML's
+    attributes) of a copy of the read-back model on the card, through the
+    dense and the sparse propagation, against a twin loaded with the same
+    parameters and both optimizers' Adam state before every step, whose
+    kept hops are then stale: every loss, parameter and Adam moment equal
+    bit for bit, and the discriminator steps count 1 miss, then 4 hits
+    (``fairgo.hop_cache_*``). The benchmark's checked steps each follow a
+    filter step, so all miss: a stale hit shows here."""
+    import torch
+
+    from recbole_fairrec_tpu_torch import Config
+    from recbole_fairrec_tpu_torch.utils import get_model, tracing
+
+    sst = _fairgo_attrs(trainer)
+    kinds = [("filter", "calculate_loss")] + [("dis", "calculate_dis_loss")] * FAIRGO_DIS_STEPS
+    rows = {}
+    for path, extra in (("dense", {}), ("csr", {"dense_propagation": False})):
+        label = f"fairgo {model} hop cache {path}"
+        config = Config(model=model, dataset=ADV_DATASET, config_dict={**cfg, **extra})
+        pair = []
+        for _ in range(2):
+            t = type(trainer)(config, get_model(model)(config, train_data.dataset))
+            t.model.load_state_dict(trainer.model.state_dict())
+            t.model.train_stage = "finetune"
+            t.model.train()
+            _require_card_trainer(t, label, model)
+            pair.append(t)
+        main, twin = pair
+        if ("prop_dense" in main.model._buffers) != (path == "dense"):
+            fail(f"{label}: the model's propagation is not {path}")
+        it = iter(train_data)
+        counted = []
+        tracing.enable()
+        try:
+            for step, (tag, loss_name) in enumerate(kinds):
+                twin.model.load_state_dict(main.model.state_dict())
+                for attr in ("tx_filter", "tx_dis"):
+                    getattr(twin, attr).load_state_dict(
+                        copy.deepcopy(getattr(main, attr).state_dict()))
+                batch = main._train_batch(next(it), main.model.loss_batch_fields(loss_name, sst))
+                losses = []
+                for t in (main, twin):
+                    tracing.reset()
+                    losses.append(t._train_step(dict(batch), loss_name, sst, t._tx_by_tag(tag)))
+                    c = tracing.counters()
+                    counted.append((c.get("fairgo.hop_cache_hits", 0),
+                                    c.get("fairgo.hop_cache_misses", 0)))
+                if not torch.equal(*losses):
+                    fail(f"{label}: step {step} ({tag}) loss {float(losses[0])} against the "
+                         f"twin's {float(losses[1])}")
+                for (name, p), q in zip(main.model.named_parameters(), twin.model.parameters()):
+                    if not torch.equal(p, q):
+                        fail(f"{label}: step {step} ({tag}) leaves {name} unlike the twin's")
+                for attr in ("tx_filter", "tx_dis"):
+                    a = getattr(main, attr).state_dict()["state"]
+                    b = getattr(twin, attr).state_dict()["state"]
+                    if a.keys() != b.keys() or not all(
+                            torch.equal(a[i][slot], b[i][slot]) for i in a
+                            for slot in ("exp_avg", "exp_avg_sq", "step")):
+                        fail(f"{label}: step {step} ({tag}) leaves {attr}'s moments unlike "
+                             "the twin's")
+        finally:
+            tracing.disable()
+            tracing.reset()
+        train_data.pr = 0
+        main_counts, twin_counts = counted[0::2], counted[1::2]
+        expected = [(0, 0), (0, 1)] + [(1, 0)] * (FAIRGO_DIS_STEPS - 1)
+        if main_counts != expected or twin_counts != [(0, 0)] + [(0, 1)] * FAIRGO_DIS_STEPS:
+            fail(f"{label}: (hits, misses) a step {main_counts}, the twin's {twin_counts}; "
+                 f"expected {expected}")
+        rows[path] = {"steps": [k for k, _ in kinds], "hits_misses": main_counts}
+        del main, twin, pair
+        torch.cuda.empty_cache()
+    print(f"fairgo: {model} hop cache, each step equal to a cold-cache twin's bit for bit "
+          f"{json.dumps(rows)}", flush=True)
 
 
 def time_fairgo_step_split(trainer, train_data, card, model, steps=FAIRGO_SPLIT_STEPS):
@@ -2175,6 +2259,7 @@ def fairgo(data_root, work_dir, card):
         del trainer
         check_fairgo_steps(trainer2, train2, cfg, model)
         launches["spmm_csr"] += count_fairgo_csr_launches(trainer2, train2, cfg, model)
+        check_fairgo_hop_cache(trainer2, train2, cfg, model)
         if model == "FairGo_PMF":
             check_fairgo_propagation(trainer2, train2, cfg, model, card)
             hop_model = trainer2.model

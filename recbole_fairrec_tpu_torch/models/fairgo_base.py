@@ -16,9 +16,16 @@ Counterpart of ``recbole_fairrec_tpu/models/fairgo_base.py``:
   CE, a quirk of the reference kept on purpose;
 * model loss = MSE, minus ``fair_weight`` times the discriminator loss in
   finetune;
+* a discriminator step changes neither the tables nor the filters, so in
+  finetune ``calculate_dis_loss`` keeps the filtered table of the subset and
+  its hops from one call to the next while nothing they are computed from
+  has changed; a loss that differentiates the tables or filters, and the
+  filter step's ``calculate_loss``, computes them anew;
 * predictions clamped to [0, max_rating] / max_rating;
 * traced (``utils/tracing.py``): ``fairgo.filters`` around the filters over
-  the table, ``fairgo.dis_loss`` around the discriminator loss.
+  the table, ``fairgo.dis_loss`` around the discriminator loss; the
+  counters ``fairgo.hop_cache_hits`` / ``fairgo.hop_cache_misses`` at each
+  lookup of the kept hops.
 
 Parameters follow the JAX package's tree: ``user_embedding`` /
 ``item_embedding`` (N(0, 1), PAD row 0, or the dataset's preloaded
@@ -131,13 +138,18 @@ class FairGoBase(FairRecommender):
         """The CSR forms of the ``prefix`` matrix, on the device of its COO
         arrays: built there at the first call and again only when the arrays
         have moved."""
-        arrays = [getattr(self, f"{prefix}_{part}") for part in ("rows", "cols", "vals")]
         cache = self.__dict__.setdefault("_csr_cache", {})
-        key = (arrays[0].device, *(a.data_ptr() for a in arrays))
+        key = self._coo_key(prefix)
         if prefix not in cache or cache[prefix][0] != key:
             cache.pop(prefix, None)  # free the old forms before building the new
+            arrays = [getattr(self, f"{prefix}_{part}") for part in ("rows", "cols", "vals")]
             cache[prefix] = (key, csr_pair(*arrays, self.n_users + self.n_items))
         return cache[prefix][1]
+
+    def _coo_key(self, prefix):
+        """The device and storage of the ``prefix`` matrix's COO arrays."""
+        arrays = [getattr(self, f"{prefix}_{part}") for part in ("rows", "cols", "vals")]
+        return (arrays[0].device, *(a.data_ptr() for a in arrays))
 
     # ---------------------------------------------------------------- params
 
@@ -210,25 +222,70 @@ class FairGoBase(FairRecommender):
         return mse
 
     def calculate_dis_loss(self, batch, sst_list=None):
-        user_all, item_all = self.forward(sst_list, train=True)
-        return self._dis_loss(user_all, item_all, batch, sst_list, batch_weights(batch))
+        """The discriminator loss. In finetune, while no table or filter
+        requires grad (the trainer's discriminator step) or grad mode is
+        off, and no table is row-sharded, the filtered table and its hops
+        are kept from one call to the next until the key of ``_hop_key``
+        changes: computed without grad on a miss, read on a hit. Each lookup
+        counts ``fairgo.hop_cache_hits`` or ``fairgo.hop_cache_misses``."""
+        w = batch_weights(batch)
+        inputs = self._table_params()
+        if self.train_stage != "finetune" or self.row_shards or (
+                torch.is_grad_enabled() and any(p.requires_grad for p in inputs)):
+            user_all, item_all = self.forward(sst_list, train=True)
+            return self._dis_loss(user_all, item_all, batch, sst_list, w)
+        key = self._hop_key(sst_list, inputs)
+        kept = self.__dict__.get("_hop_cache")
+        if kept is not None and kept[0] == key:
+            tracing.count("fairgo.hop_cache_hits")
+            return self._dis_loss(kept[1], None, batch, sst_list, w, hops=kept[2])
+        tracing.count("fairgo.hop_cache_misses")
+        del kept
+        self.__dict__.pop("_hop_cache", None)  # free the old entry before computing the new
+        with torch.no_grad():
+            user_all, item_all = self.forward(sst_list, train=True)
+        return self._dis_loss(user_all, item_all, batch, sst_list, w, keep=key)
+
+    def _table_params(self):
+        """The parameters the filtered table is computed from: the
+        backbone's and every filter's."""
+        return [p for key in (*self._backbone_param_keys(), "filters")
+                for p in getattr(self, key).parameters()]
+
+    def _hop_key(self, sst_list, inputs):
+        """What the filtered table of ``sst_list`` and its hops are computed
+        from: the subset in the order of its sum; the version and storage of
+        each of ``inputs`` (an optimizer step, ``load_state_dict`` and every
+        in-place write move the version); the matrix's storage; the device,
+        the dtype and the float32 matmul precision."""
+        weight = self.user_embedding.weight
+        dense = self._buffers.get("prop_dense")
+        return (tuple(sst_list or self.sst_attrs), weight.device, weight.dtype,
+                torch.get_float32_matmul_precision(),
+                dense.data_ptr() if dense is not None else self._coo_key("norm"),
+                tuple((p._version, p.data_ptr()) for p in inputs))
 
     @tracing.traced("fairgo.dis_loss")
-    def _dis_loss(self, user_all, item_all, batch, sst_list, w):
+    def _dis_loss(self, user_all, item_all, batch, sst_list, w, hops=None, keep=None):
         """Node + local discriminator losses over ``sst_list`` (every
-        attribute when empty)."""
+        attribute when empty); the table's ``hops`` when given, else
+        propagated here and, under the key ``keep``, kept for
+        ``calculate_dis_loss``."""
         sst_list = sst_list or tuple(self.sst_attrs)
         user = batch[self.USER_ID]
         user_node = user_all[user]
-        n = self.n_users + self.n_items
-        dense = self._buffers.get("prop_dense")
-        csr = None if dense is not None else self._csr("norm")
-        x = torch.cat([user_all, item_all], dim=0)
-        hops = []
-        for _ in range(self.n_layers):
-            x = propagate(x, self.norm_rows, self.norm_cols, self.norm_vals, n, dense=dense,
-                          csr=csr)
-            hops.append(x)
+        if hops is None:
+            n = self.n_users + self.n_items
+            dense = self._buffers.get("prop_dense")
+            csr = None if dense is not None else self._csr("norm")
+            x = torch.cat([user_all, item_all], dim=0)
+            hops = []
+            for _ in range(self.n_layers):
+                x = propagate(x, self.norm_rows, self.norm_cols, self.norm_vals, n, dense=dense,
+                              csr=csr)
+                hops.append(x)
+            if keep is not None:
+                self.__dict__["_hop_cache"] = (keep, user_all, hops)
 
         lva_mode = self.aggr_method == "LVA" and self.n_layers > 1
         if self.n_layers == 1:

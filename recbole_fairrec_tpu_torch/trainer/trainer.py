@@ -6,7 +6,8 @@ and evaluation (eval macro-batching, the device and host paths,
 ``evaluate``).
 
 Training. One step is ``zero_grad`` of the whole model → device negatives
-when the loader runs in ``device_neg_sampling`` mode → the model's loss →
+when the loader runs in ``device_neg_sampling`` mode → the model's loss,
+the parameters outside the optimizer not requiring grad while it runs →
 the gradients of the optimizer's parameters alone → a zero gradient for
 each of them that the loss did not reach → gradient clipping over the
 optimizer's parameters → the optimizer's step. Every learner follows the JAX package's
@@ -85,6 +86,7 @@ from __future__ import annotations
 import itertools
 import os
 import pickle
+import weakref
 from logging import getLogger
 from time import time
 
@@ -381,6 +383,18 @@ class Trainer(AbstractTrainer):
         )
         return batch
 
+    def _step_params(self, optimizer):
+        """(``optimizer``'s parameters, the model's other parameters),
+        worked out once per optimizer."""
+        cache = self.__dict__.setdefault("_step_param_cache", weakref.WeakKeyDictionary())
+        entry = cache.get(optimizer)
+        if entry is None:
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            ids = {id(p) for p in params}
+            entry = cache[optimizer] = (
+                params, [p for p in self.model.parameters() if id(p) not in ids])
+        return entry
+
     @tracing.traced("trainer.step")
     def _train_step(self, batch, loss_name, sst_list, optimizer):
         """One optimizer step on ``batch``; returns the loss (a detached
@@ -395,16 +409,30 @@ class Trainer(AbstractTrainer):
         parameter of ``optimizer`` that the loss does not reach (a filter of
         another subset) gets a zero gradient, so its update rule still runs —
         moments decay, weight decay applies, the step count advances — as the
-        JAX package's masked optax chain does."""
+        JAX package's masked optax chain does.
+
+        While the loss runs, the model's parameters outside ``optimizer``
+        do not require grad (each gets its own flag back after, so frozen
+        ones stay frozen): the gradients are the same, and the model can see
+        which of its parameters the step differentiates (FairGo keeps its
+        filtered table and hops across discriminator steps)."""
         self.model.zero_grad(set_to_none=True)
         batch = self._inject_negatives(batch, loss_name)
         split = None
         if self.mesh is not None:
             batch, split = batch_sharding(self.mesh, batch)
-        params = [p for group in optimizer.param_groups for p in group["params"]]
-        with batch_split(split):
-            loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        params, outside = self._step_params(optimizer)
+        flags = [p.requires_grad for p in outside]
+        for p in outside:
+            p.requires_grad_(False)
+        try:
+            with batch_split(split):
+                loss = getattr(self.model, loss_name)(batch, sst_list=sst_list)
+                grads = (torch.autograd.grad(loss, params, allow_unused=True)
+                         if loss.requires_grad else [None] * len(params))
+        finally:
+            for p, flag in zip(outside, flags):
+                p.requires_grad_(flag)
         for p, g in zip(params, grads):
             p.grad = g
         if split is not None:
