@@ -7,7 +7,11 @@ Counterpart of ``recbole_fairrec_tpu/models/gcn.py``, with torch_geometric's
   ``ops.spmm.build_gcn_norm_coo``);
 * widths in → hidden → … → out over ``num_layers`` convolutions;
 * activation and dropout BETWEEN layers, not after the last;
-* Glorot-uniform weights, zero biases.
+* Glorot-uniform weights, zero biases;
+* traced (``utils/tracing.py``): each convolution is the span ``gcn.conv``
+  (attrs ``layer``, ``d_in``, ``d_out``, ``rows`` and ``dropout``, the rate
+  of the mask drawn after it, 0 where none is); the spans' count is the
+  count of convolutions.
 
 The state dict is the JAX package's ``gcn`` tree: ``convs.<i>.w`` ``[in,
 out]`` and ``convs.<i>.b``.
@@ -19,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.spmm import propagate
+from ..utils import tracing
 from .layers import Linear, apply_activation
 
 
@@ -38,11 +43,20 @@ class GCN(nn.Module):
         (train only) draw from ``generator``."""
         n = x.shape[0]
         keep = 1.0 - dropout
+        last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
-            x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense, csr=csr) + conv.b
-            if i < len(self.convs) - 1:
-                x = apply_activation(act, x)
-                if train and dropout > 0.0:
+            masked = train and dropout > 0.0 and i < last
+            with tracing.span("gcn.conv") as sp:
+                if sp:
+                    sp.set("layer", i)
+                    sp.set("d_in", conv.w.shape[0])
+                    sp.set("d_out", conv.w.shape[1])
+                    sp.set("rows", n)
+                    sp.set("dropout", dropout if masked else 0.0)
+                x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense, csr=csr) + conv.b
+                if i < last:
+                    x = apply_activation(act, x)
+                if masked:
                     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
                     x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))

@@ -71,17 +71,20 @@ class _Propagate(torch.autograd.Function):
     ``dense`` the float32 gradient is rounded to bfloat16 by autograd as
     ``x``'s type asks, as the JAX package's transpose of its mixed-precision
     dot gives it; on the card the incoming float32 ``grad`` is rounded to
-    bfloat16 too, to stay on the tensor cores."""
+    bfloat16 too, to stay on the tensor cores. The backward adds ``edges``
+    (the matrix's COO entries) to the counter ``spmm.backward_edges``."""
 
     @staticmethod
-    def forward(ctx, dense, x):
+    def forward(ctx, dense, x, edges):
         ctx.save_for_backward(dense)
+        ctx.edges = edges
         return matmul_f32(dense, x)
 
     @staticmethod
     def backward(ctx, grad):
         (dense,) = ctx.saved_tensors
-        return None, matmul_f32(dense.t(), grad)
+        tracing.count("spmm.backward_edges", ctx.edges)
+        return None, matmul_f32(dense.t(), grad), None
 
 
 def propagate(x, rows, cols, vals, n, dense=None, csr=None):
@@ -93,8 +96,10 @@ def propagate(x, rows, cols, vals, n, dense=None, csr=None):
     a caller that hops more than once builds the pair once and passes it
     (``FairGoBase._csr``). Traced as ``spmm.propagate`` (attrs ``path``:
     ``dense`` or ``csr``; ``edges``, ``d``); the counter ``spmm.edges`` adds
-    the matrix's edges at every hop, ``spmm.csr_edges`` those of the hops
-    through the CSR pair."""
+    the matrix's edges at every forward hop, ``spmm.csr_edges`` those of the
+    forward hops through the CSR pair. ``spmm.edges`` stays forward-only: the
+    hop's backward, where autograd runs it, adds the matrix's entries to
+    ``spmm.backward_edges`` (``_Propagate.backward``, ``CsrHop.backward``)."""
     edges = 0 if rows is None else rows.shape[0]
     path = "dense" if dense is not None else "csr"
     tracing.count("spmm.edges", edges)
@@ -106,7 +111,7 @@ def propagate(x, rows, cols, vals, n, dense=None, csr=None):
             sp.set("edges", edges)
             sp.set("d", x.shape[1])
         if path == "dense":
-            return _Propagate.apply(dense, x.to(dense.dtype))
+            return _Propagate.apply(dense, x.to(dense.dtype), edges)
         return CsrHop.apply(x, csr_pair(rows, cols, vals, n) if csr is None else csr)
 
 

@@ -18,7 +18,10 @@ give the same bits. It is compiled with ``nvcc`` for ``sm_90a`` into
 launches (the pieces, then the rows that several pieces share) and
 allocates the output and a scratch row per piece; ``launches`` counts the
 calls that took the kernel. ``CsrHop`` makes the product differentiable in
-``x``: the gradient is the same kernel over Aᵀ.
+``x``: the gradient is the same kernel over Aᵀ; each backward hop adds Aᵀ's
+entries to the counter ``spmm.backward_edges`` (``utils/tracing.py``; the
+forward hops are ``ops/spmm.py::propagate``'s ``spmm.edges``, which stays
+forward-only).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from .nvcc_build import CSRC_DIR, build_library
 
 SOURCE = os.path.join(CSRC_DIR, "spmm_csr.cu")
@@ -180,7 +184,8 @@ def spmm_csr(csr, x):
 class CsrHop(torch.autograd.Function):
     """``A @ x`` for a ``CsrPair`` of A, differentiable in ``x``: the
     forward over ``pair.fwd``, the gradient ``Aᵀ @ grad`` over ``pair.bwd``.
-    The values take no gradient; nothing but the pair is kept."""
+    The values take no gradient; nothing but the pair is kept. A backward
+    hop counts Aᵀ's entries in ``spmm.backward_edges``."""
 
     @staticmethod
     def forward(ctx, x, pair):
@@ -189,4 +194,5 @@ class CsrHop(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        tracing.count("spmm.backward_edges", ctx.pair.bwd.vals.numel())
         return spmm_csr(ctx.pair.bwd, grad.contiguous()), None

@@ -5,7 +5,8 @@
 ``fairgo.dis_loss`` around the discriminator loss, nested in
 ``trainer.step``; the counter ``spmm.edges`` adds the matrix's entries at
 every forward hop, ``spmm.csr_edges`` those of the hops through the CSR
-pair, and a discriminator step's lookup of the kept hops counts
+pair, ``spmm.backward_edges`` those of every backward hop (a filter step's
+two), and a discriminator step's lookup of the kept hops counts
 ``fairgo.hop_cache_misses`` (a fresh model's first). Through the sparse (CSR) and the dense propagation, for both step
 kinds; off, nothing is recorded; under a profiler the spans are its
 annotations too."""
@@ -61,9 +62,12 @@ def test_a_step_records_the_spans_and_the_edge_counter(world, dense, kind):
     for r in recs:
         if r.name in ("fairgo.filters", "fairgo.dis_loss"):
             assert recs[r.parent].name == "trainer.step"
+    # a filter step backprops through both hops; a discriminator step's miss computes
+    # them without grad
     assert tracing.counters() == {"spmm.edges": 2 * entries,
                                   **({} if dense else {"spmm.csr_edges": 2 * entries}),
-                                  **({"fairgo.hop_cache_misses": 1} if kind == "dis" else {})}
+                                  **({"fairgo.hop_cache_misses": 1} if kind == "dis" else
+                                     {"spmm.backward_edges": 2 * entries})}
     summary = tracing.summary()
     assert summary["spmm.propagate"]["count"] == 2
     assert all(r.end_ns >= r.start_ns for r in recs)
