@@ -4,14 +4,17 @@ Counterpart of ``recbole_fairrec_tpu/models/gcn.py``, with torch_geometric's
 ``GCN`` / ``GCNConv`` semantics:
 
 * per layer x' = Â (x W) + b, with Â = D̃^-½ (A + I) D̃^-½ (rating-weighted,
-  ``ops.spmm.build_gcn_norm_coo``);
+  ``ops.spmm.build_gcn_norm_coo``); a convolution that widens (W's
+  ``d_out`` over its ``d_in``) computes it as (Â x) W + b, so that every hop,
+  forward and backward, runs at the narrower width ``min(d_in, d_out)``;
 * widths in → hidden → … → out over ``num_layers`` convolutions;
 * activation and dropout BETWEEN layers, not after the last;
 * Glorot-uniform weights, zero biases;
 * traced (``utils/tracing.py``): each convolution is the span ``gcn.conv``
-  (attrs ``layer``, ``d_in``, ``d_out``, ``rows`` and ``dropout``, the rate
-  of the mask drawn after it, 0 where none is); the spans' count is the
-  count of convolutions.
+  (attrs ``layer``, ``d_in``, ``d_out``, ``hop_d``, the width its hop ran
+  at, ``rows`` and ``dropout``, the rate of the mask drawn after it, 0 where
+  none is); the spans' count is the count of convolutions, and the counter
+  ``gcn.hop_first`` adds 1 for each that hops before its weight.
 
 The state dict is the JAX package's ``gcn`` tree: ``convs.<i>.w`` ``[in,
 out]`` and ``convs.<i>.b``.
@@ -46,14 +49,22 @@ class GCN(nn.Module):
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
             masked = train and dropout > 0.0 and i < last
+            d_in, d_out = conv.w.shape
             with tracing.span("gcn.conv") as sp:
                 if sp:
                     sp.set("layer", i)
-                    sp.set("d_in", conv.w.shape[0])
-                    sp.set("d_out", conv.w.shape[1])
+                    sp.set("d_in", d_in)
+                    sp.set("d_out", d_out)
+                    sp.set("hop_d", min(d_in, d_out))
                     sp.set("rows", n)
                     sp.set("dropout", dropout if masked else 0.0)
-                x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense, csr=csr) + conv.b
+                if d_out > d_in:  # Â (x W) = (Â x) W: the hop at the narrower d_in
+                    tracing.count("gcn.hop_first")
+                    # the kernel takes a contiguous x, as x @ W gives it in the other order
+                    x = propagate(x.contiguous(), rows, cols, vals, n, dense=dense,
+                                  csr=csr) @ conv.w + conv.b
+                else:
+                    x = propagate(x @ conv.w, rows, cols, vals, n, dense=dense, csr=csr) + conv.b
                 if i < last:
                     x = apply_activation(act, x)
                 if masked:

@@ -1,10 +1,12 @@
 """The spans and counters of FairGo_GCN's pretrain (``models/gcn.py``,
 ``ops/spmm.py``, ``ops/spmm_csr.py``): under the tracer a pretrain step
 records ``gcn.conv`` around each convolution (attrs ``layer``, ``d_in``,
-``d_out``, ``rows``, ``dropout``), nested in ``trainer.step``, with the
-convolution's ``spmm.propagate`` inside it; ``spmm.edges`` counts the
-entries of Â at each forward hop and ``spmm.backward_edges`` at each
-backward hop. Through the sparse (CSR) and
+``d_out``, ``hop_d``, ``rows``, ``dropout``), nested in ``trainer.step``,
+with the convolution's ``spmm.propagate`` inside it, both hops at the
+hidden width (the second convolution widens, so it hops first and counts
+``gcn.hop_first``); ``spmm.edges`` counts the entries of Â at each forward
+hop and ``spmm.backward_edges`` at each backward hop. Through the sparse
+(CSR) and
 the dense propagation, with a profiler in place of ``tracing.enable``
 too; off, nothing is recorded."""
 
@@ -51,14 +53,14 @@ def test_a_pretrain_step_records_the_convolutions_and_both_edge_counters(world, 
     recs = tracing.records()
     convs = [r for r in recs if r.name == "gcn.conv"]
     assert [c.attrs for c in convs] == [
-        {"layer": 0, "d_in": D, "d_out": HIDDEN, "rows": n, "dropout": 0.2},
-        {"layer": 1, "d_in": HIDDEN, "d_out": D, "rows": n, "dropout": 0.0}]
+        {"layer": 0, "d_in": D, "d_out": HIDDEN, "hop_d": HIDDEN, "rows": n, "dropout": 0.2},
+        {"layer": 1, "d_in": HIDDEN, "d_out": D, "hop_d": HIDDEN, "rows": n, "dropout": 0.0}]
     assert all(recs[c.parent].name == "trainer.step" for c in convs)
     hops = [r for r in recs if r.name == "spmm.propagate"]
     assert [recs[h.parent] for h in hops] == convs
     assert [h.attrs for h in hops] == [{"path": "dense" if dense else "csr", "edges": entries,
-                                        "d": d} for d in (HIDDEN, D)]
-    assert tracing.counters() == {"spmm.edges": 2 * entries,
+                                        "d": HIDDEN} for _ in convs]
+    assert tracing.counters() == {"gcn.hop_first": 1, "spmm.edges": 2 * entries,
                                   "spmm.backward_edges": 2 * entries,
                                   **({} if dense else {"spmm.csr_edges": 2 * entries})}
 
